@@ -34,6 +34,22 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
             its prep ops and host dispatch), the plain version's time, its
             bound from bytes or operations at the H100's spec peaks, and a
             PyTorch library call's time where one computes the function.
+6. pq_adc   the PQ filter scan of the paper's memory layout (§4.1.1): the
+            bucketed pq_adc over the baseline index's N PQ codes against
+            the LUTs of the first 8 queries, over 65,536 random codes
+            (the microbench shape), and the raw kernel at n = 1000 with
+            keep_pad. The launch count is set to 0 just before and read
+            just after. Each result is held against pq_adc_ref on the card
+            (rtol 1e-5), the first query's against the host PQ.adc
+            (rtol 1e-4), and the pad tail must be +inf. It prints the
+            kernel's device time, the launcher's, the plain version's, its
+            bound, and `embedding_bag`'s time as the library yardstick.
+7. io       the I/O stack on the baseline index: the 1000 queries through
+            page_store(batched=True) with the per-query page bitmaps and
+            traces, their cross-query coalescing, and replays of the
+            traces through LRU, FIFO and 2Q caches of 2% of the index's
+            page bytes, LRU with prefetch 2, and 4 shards in each
+            placement, asserting the conservation identities of each.
 
 The last lines are the kernels' JSON, the card's name and power limit, and
 {"ok": true, "device": {...}}. It needs one card, and exits non-zero without
@@ -72,7 +88,16 @@ KERNELS = {
                  "src/repro/kernels/fused_search.py:132"),
     "fused_page_rank": ("src/repro_torch/kernels/csrc/fused_page_rank.cu",
                         "src/repro/kernels/fused_search.py:76"),
+    "pq_adc": ("src/repro_torch/kernels/csrc/pq_adc.cu",
+               "src/repro/kernels/pq_adc.py:49"),
 }
+# the kernels of the fused search's path; pq_adc has its own ([pq_adc])
+SEARCH_KERNELS = ("page_scan", "page_adc", "fused_page_rank")
+# the PQ filter's microbench shape (benchmarks/kernels.py): one query's LUT
+# against this many random codes
+PQ_MICRO_N = 65_536
+# [io]: the dynamic caches hold this share of the index's page bytes
+IO_CACHE_FRAC = 0.02
 
 
 def say(phase: str, **kv) -> None:
@@ -175,7 +200,7 @@ def phase_search(rt, torch, ds, indexes):
             split = measure_step_us(store, idx.pq, ds.queries[:256],
                                     st.page_trace[:256], mode="split")
             torch.cuda.synchronize()
-            launches = dict(ops.launches)
+            launches = {k: ops.launches[k] for k in SEARCH_KERNELS}
             extra = {"measured_step_us_mean":
                      round(float(st.measured_step_us.mean()), 3),
                      "split_us_per_page": round(split["us_per_page"], 4),
@@ -314,7 +339,8 @@ def phase_kernels(torch, search_out, d: int):
     torch.testing.assert_close(library["page_adc"]().reshape(w, n_p, nq),
                                adc_ref, rtol=1e-4, atol=1e-3)
     rows = []
-    for name, (source, replaces) in KERNELS.items():
+    for name in SEARCH_KERNELS:
+        source, replaces = KERNELS[name]
         err = 0.0
         for g, want, rtol, atol in checks[name]:
             if g.shape != want.shape or not torch.isfinite(g).all():
@@ -341,6 +367,161 @@ def phase_kernels(torch, search_out, d: int):
                           if k not in ("source", "replaces")})
         rows.append(row)
     return rows
+
+
+def phase_pq_adc(rt, torch, ds, indexes):
+    """The PQ filter scan over the baseline index's real codes."""
+    from repro_torch import kernels as ops
+    from repro_torch.core.device_model import H100_SXM
+    from repro_torch.core.search_kernel import _pq_device_arrays
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.ops import bucket_size
+    from repro_torch.kernels.pq_adc import launch_pq_adc, pq_adc
+    pq = indexes["baseline"].pq
+    codes = _pq_device_arrays(pq, "cuda")[1]          # the search's copy
+    n, m = codes.shape
+    luts = [torch.as_tensor(pq.lut(q), device="cuda")
+            for q in ds.queries[:8]]
+    rng = np.random.default_rng(0)
+    micro_codes = torch.as_tensor(rng.integers(0, 256, (PQ_MICRO_N, m))
+                                  .astype(np.uint8), device="cuda")
+    micro_lut = torch.as_tensor((rng.normal(size=(m, 256)) ** 2)
+                                .astype(np.float32), device="cuda")
+    say("pq_adc", N=n, M=m, luts=len(luts), micro_N=PQ_MICRO_N)
+
+    # the main path, counted: 8 queries over the index, the microbench
+    # shape, and a length inside a bucket with its padded tail kept
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    got = [ops.pq_adc(codes, lut) for lut in luts]
+    got_micro = ops.pq_adc(micro_codes, micro_lut)
+    padded = pq_adc(codes[:1000], luts[0], keep_pad=True)
+    torch.cuda.synchronize()
+    launches = ops.launches["pq_adc"]
+    if launches == 0:
+        raise RuntimeError("the [pq_adc] path launched no pq_adc kernel")
+
+    err = 0.0
+    for g, c, lut in [(g, codes, lut) for g, lut in zip(got, luts)] + [
+            (got_micro, micro_codes, micro_lut)]:
+        want = ref.pq_adc_ref(c, lut)
+        if g.shape != want.shape or not torch.isfinite(g).all():
+            raise RuntimeError(f"pq_adc: malformed output {tuple(g.shape)}")
+        torch.testing.assert_close(g, want, rtol=1e-5, atol=0)
+        err = max(err, float((g - want).abs().max()))
+    host = pq.adc(ds.queries[0], np.arange(n))
+    np.testing.assert_allclose(got[0].cpu().numpy(), host, rtol=1e-4)
+    tail = padded[1000:]
+    if padded.shape[0] != 1024 or not (torch.isinf(tail).all()
+                                       and (tail > 0).all()):
+        raise RuntimeError(f"pq_adc: the pad tail of {tuple(padded.shape)} "
+                           f"is not all +inf")
+    torch.testing.assert_close(padded[:1000], got[0][:1000], rtol=0, atol=0)
+    say("pq_adc", launches=launches, max_abs_err=err,
+        host_adc_rtol=1e-4, pad_rows=int(tail.numel()), pad_all_inf=True)
+
+    timed = {}
+    for label, c, lut in (("index", codes, luts[0]),
+                          ("micro", micro_codes, micro_lut)):
+        rows = c.shape[0]
+        n_out = bucket_size(rows, floor=min(512, bucket_size(rows)))
+        out = torch.empty(n_out, device="cuda")
+        ms = graph_ms(torch, lambda: launch_pq_adc(c, lut, n_out, rows, out),
+                      200)
+        torch.testing.assert_close(out[:rows], ref.pq_adc_ref(c, lut),
+                                   rtol=1e-5, atol=0)
+        bags = c.long() + 256 * torch.arange(m, device="cuda")
+        lut_rows = lut.reshape(m * 256, 1)
+        library = lambda: torch.nn.functional.embedding_bag(  # noqa: E731
+            bags, lut_rows, mode="sum")
+        torch.testing.assert_close(library()[:, 0], ref.pq_adc_ref(c, lut),
+                                   rtol=1e-5, atol=1e-5)
+        # each code read once, the LUT once, each of the N distances
+        # written once; N*M f32 additions
+        bound_s, bound_by = H100_SXM.bound_s(rows * m + m * 256 * 4
+                                             + rows * 4, rows * m)
+        timed[label] = {
+            "ms": ms,
+            "launcher_ms": cuda_ms(torch, lambda: ops.pq_adc(c, lut), 200),
+            "plain_ms": cuda_ms(torch, lambda: ref.pq_adc_ref(c, lut), 50),
+            "bound_ms": bound_s * 1e3, "bound_by": bound_by,
+            "library_ms": cuda_ms(torch, library, 200)}
+        say("pq_adc", shape=label, N=rows, n_out=n_out,
+            bound_us=round(bound_s * 1e6, 3),
+            **{k: v for k, v in timed[label].items() if k != "bound_ms"})
+    source, replaces = KERNELS["pq_adc"]
+    return {"name": "pq_adc", "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches, "max_abs_err": err,
+            **timed["index"]}
+
+
+def phase_io(rt, torch, ds, indexes):
+    """The I/O stack on a real search of the baseline index."""
+    from repro_torch.core.search_kernel import search_batched
+    from repro_torch.io import build_store, profile_from_trace
+    t0 = time.perf_counter()
+    idx = indexes["baseline"]
+    cfg = rt.get_preset("baseline")
+    store = idx.page_store(batched=True)
+    bottom = store.inner
+    before = bottom.counters.pages_fetched
+    st = search_batched(store, idx.pq, cfg, ds.queries, medoid=idx.medoid,
+                        collect_visited=True, collect_trace=True)
+    torch.cuda.synchronize()
+    reads = int(st.page_reads.sum())
+    requested = issued = 0
+    for s in range(0, NQ, 256):
+        acct = store.coalesce(st.visited_pages[s:s + 256])
+        requested += acct["requested"]
+        issued += acct["issued"]
+    checks = [requested == int(st.visited_pages.sum()), issued <= requested,
+              store.savings() == requested - issued,
+              bottom.counters.pages_fetched - before == reads + issued]
+    say("io", path="coalesce", page_reads=reads, requested=requested,
+        issued=issued, savings=store.savings(), ok=all(checks))
+    if not all(checks):
+        raise RuntimeError(f"coalesce broke conservation: {checks}")
+
+    lay = idx.layout
+    cache_bytes = int(IO_CACHE_FRAC * lay.num_pages * lay.page_bytes)
+    profile = profile_from_trace(st.page_trace, lay.num_pages)
+    stacks = {"lru": dict(cache_policy="lru"),
+              "fifo": dict(cache_policy="fifo"),
+              "2q": dict(cache_policy="2q"),
+              "lru-prefetch2": dict(cache_policy="lru", prefetch=2)}
+    for placement in ("round-robin", "contiguous", "replicated"):
+        stacks[f"shards4-{placement}"] = dict(
+            cache_policy="lru", shards=4, placement=placement,
+            page_profile=profile if placement == "replicated" else None)
+    for name, kw in stacks.items():
+        top = build_store(lay, batched=True, cache_bytes=cache_bytes,
+                          device="cuda", **kw)
+        acc = {"requested": 0, "issued": 0, "hits": 0, "prefetch_issued": 0}
+        for s in range(0, NQ, 256):
+            acct = top.replay_batch(st.page_trace[s:s + 256])
+            for k in acc:
+                acc[k] += acct[k]
+        base = top
+        while hasattr(base, "inner"):
+            base = base.inner
+        demand = acc["issued"] - acc["prefetch_issued"]
+        checks = [acc["requested"] == reads, demand <= acc["requested"],
+                  acc["hits"] + demand == acc["requested"],
+                  base.counters.pages_fetched == acc["issued"],
+                  top.counters.pages_fetched == acc["issued"]]
+        shards = ([[r["pages_fetched"], r["cache_hits"]]
+                   for r in top.shard_rows()]
+                  if hasattr(top, "shard_rows") else None)
+        if shards is not None:
+            checks.append(sum(r[0] for r in shards) == acc["issued"])
+        say("io", stack=name, cache_pages=cache_bytes // lay.page_bytes,
+            hit_rate=round(top.hit_rate(), 4), requested=acc["requested"],
+            issued=acc["issued"], prefetch_issued=acc["prefetch_issued"],
+            shard_fetched_hits=json.dumps(shards).replace(" ", ""),
+            ok=all(checks))
+        if not all(checks):
+            raise RuntimeError(f"{name}: replay broke conservation: {checks}")
+    say("io", phase_s=round(time.perf_counter() - t0, 3))
 
 
 def main() -> int:
@@ -385,6 +566,10 @@ def main() -> int:
     search_out["queries"] = ds.queries
     phase_parity(rt)
     rows = phase_kernels(torch, search_out, ds.d)
+    t0 = time.perf_counter()
+    rows.append(phase_pq_adc(rt, torch, ds, indexes))
+    say("pq_adc", phase_s=round(time.perf_counter() - t0, 3))
+    phase_io(rt, torch, ds, indexes)
     say("done", phases_s=round(time.perf_counter() - t_all, 3),
         peak_device_gib=round(torch.cuda.max_memory_allocated() / 2**30, 3),
         peak_host_gib=round(resource.getrusage(resource.RUSAGE_SELF)

@@ -110,16 +110,17 @@ class DiskIndex:
         b += self.layout.mapping_bytes
         return b
 
-    def page_store(self, use_cache: bool = True):
+    def page_store(self, use_cache: bool = True, batched: bool = False):
         """The index's I/O-layer view: array store + cache decorator (when
-        the index holds a cache and the caller wants it). Memoized per
-        use_cache so repeated searches share counters and the device
-        tensors."""
-        key = bool(use_cache and self.cached.any())
+        the index holds a cache and the caller wants it) + optional batch
+        coalescer. Memoized per (use_cache, batched) so repeated searches
+        share counters and the device tensors."""
+        key = (bool(use_cache and self.cached.any()), batched)
         if key not in self._stores:
             self._stores[key] = build_store(
-                self.layout, cached_vertices=self.cached if key else None,
-                device=self.device)
+                self.layout,
+                cached_vertices=self.cached if key[0] else None,
+                batched=batched, device=self.device)
         return self._stores[key]
 
     def search(self, queries: np.ndarray, cfg: Optional[SearchConfig] = None,

@@ -40,6 +40,9 @@ SIGNATURES = {
         "fused_page_rank_f32": (_P,) * 8 + (_I,) * 5 + (_P,),
         "fused_page_rank_bf16": (_P,) * 8 + (_I,) * 5 + (_P,),
     },
+    "pq_adc": {
+        "pq_adc_f32": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
+    },
 }
 
 _loaded: dict = {}

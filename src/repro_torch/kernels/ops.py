@@ -1,10 +1,10 @@
-"""Wrappers of the page kernels, with the reference's bucketing semantics.
+"""Wrappers of the kernels, with the reference's bucketing semantics.
 
-Each wrapper pads the page-id schedule up to a power-of-two bucket with
-page 0 (always a valid page) and slices the result back, as
-src/repro/kernels/ops.py does. On the TPU the buckets bounded recompiles;
-here they keep the launch shapes, and so the kernels' work, the same as the
-reference's for the same schedule.
+Each page-kernel wrapper pads the page-id schedule up to a power-of-two
+bucket with page 0 (always a valid page) and slices the result back, as
+src/repro/kernels/ops.py does; `pq_adc` pads its length to a bucket. On
+the TPU the buckets bounded recompiles; here they keep the launch shapes,
+and so the kernels' work, the same as the reference's for the same input.
 
 Dispatch is by the device of the tensors: a tensor on the CPU takes the
 plain version in ref.py; a CUDA tensor launches the hand-written kernel of
@@ -17,17 +17,13 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels._launch import (_check, _on_card, _raise_on, _stream,
+                                         launches)
+from repro_torch.kernels.pq_adc import pq_adc_padded
 from repro_torch.kernels.ref import (fused_page_rank_ref, page_adc_ref,
                                      page_scan_ref)
 
 _MIN_BUCKET = 4     # smallest width bucket (floor of the power-of-two ladder)
-
-launches = {"page_scan": 0, "page_adc": 0, "fused_page_rank": 0}
-
-
-def reset_launches() -> None:
-    for name in launches:
-        launches[name] = 0
 
 
 def bucket_size(n: int, floor: int = _MIN_BUCKET) -> int:
@@ -48,43 +44,11 @@ def _pad_ids(page_ids, bucket: int):
     return torch.cat([page_ids, page_ids.new_zeros(bucket - w)])
 
 
-def _on_card(*tensors) -> bool:
-    """True for CUDA tensors (all on one device), False for CPU tensors;
-    raises on a mix or any other device."""
-    kinds = {t.device.type for t in tensors}
-    if kinds == {"cpu"}:
-        return False
-    if kinds != {"cuda"} or len({t.device for t in tensors}) != 1:
-        raise ValueError(f"page kernels take tensors all on the CPU or all "
-                         f"on one CUDA device, got "
-                         f"{sorted(str(t.device) for t in tensors)}")
-    return True
-
-
-def _check(name: str, t, dtypes, ndim: int) -> None:
-    if t.dtype not in dtypes:
-        raise TypeError(f"{name} must be one of {dtypes}, got {t.dtype}")
-    if t.dim() != ndim:
-        raise ValueError(f"{name} must be {ndim}-d, got {tuple(t.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
 def _check_ids(ids, num_pages: int) -> None:
     lo, hi = torch.stack(torch.aminmax(ids)).tolist()   # one device sync
     if lo < 0 or hi >= num_pages:
         raise IndexError(f"page ids span [{lo}, {hi}], outside the "
                          f"{num_pages} pages")
-
-
-def _stream(t) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
-
-
-def _raise_on(err: int, name: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed with CUDA error "
-                           f"{err}")
 
 
 _VEC_TYPES = (torch.float32, torch.bfloat16)
@@ -222,3 +186,14 @@ def fused_page_rank(pages, page_codes, page_ids, q, lut, *,
     exact, adc = launch_fused_page_rank(pages, page_codes, ids, q, lut)
     launches["fused_page_rank"] += 1
     return exact[:w], adc[:w]
+
+
+def pq_adc(codes, lut, block_n: int = 512):
+    """ADC LUT scan over PQ codes: codes (N, M) uint8; lut (M, 256) f32 ->
+    (N,) f32. Length-bucketed above the kernel's own block padding, as the
+    reference is: the launch covers N's power-of-two bucket, with the true
+    length as `nvalid` and the pad rows +inf, and the result is sliced to
+    N. The pad is by length: no codes are copied."""
+    n = codes.shape[0]
+    b = bucket_size(n, floor=min(block_n, bucket_size(n)))
+    return pq_adc_padded(codes, lut, b + (-b) % block_n, n)[:n]

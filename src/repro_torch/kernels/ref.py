@@ -30,6 +30,14 @@ def page_adc_ref(page_codes, page_ids, lut):
     return flat[rows].sum(-2)                                 # (W, n_p, Q)
 
 
+def pq_adc_ref(codes, lut):
+    """codes (N, M) uint8; lut (M, 256) f32 -> (N,) f32:
+    sum_j lut[j, codes[i, j]], a gather from the flat LUT and a sum."""
+    m = lut.shape[0]
+    rows = codes.long() + 256 * torch.arange(m, device=codes.device)
+    return lut.float().reshape(m * 256)[rows].sum(-1)
+
+
 def fused_page_rank_ref(pages, page_codes, page_ids, q, lut):
     """The composition of page_scan_ref and page_adc_ref over one schedule.
     Returns (exact, adc), each (W, n_p, Q) f32."""

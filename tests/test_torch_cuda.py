@@ -53,7 +53,8 @@ def _case(seed, n_pages, n_p, d, m, w, q, dtype, device):
 def test_kernels_match_plain(card, n_pages, n_p, d, m, w, q, dtype):
     pages, codes, ids, qs, lut = _case(n_pages + w, n_pages, n_p, d, m, w,
                                        q, dtype, card)
-    before = dict(ops.launches)
+    page_kernels = ("page_scan", "page_adc", "fused_page_rank")
+    before = {k: ops.launches[k] for k in page_kernels}
     exact, adc = ops.fused_page_rank(pages, codes, ids, qs, lut)
     scan = ops.page_scan(pages, ids, qs)
     split_adc = ops.page_adc(codes, ids, lut)
@@ -109,3 +110,74 @@ def test_checked_ids_skip_only_the_range_check(card):
                                exact, rtol=0, atol=0)
     torch.testing.assert_close(ops.page_adc(codes, ids, lut, ids_checked=True),
                                adc, rtol=0, atol=0)
+
+
+# (N, M, block_n): tests/test_kernels.py's sweep, the largest M the kernel
+# takes, an M that takes the byte loads, and the smoke's microbench shape
+PQ_SHAPES = [(100, 8, 64), (512, 16, 128), (1000, 16, 512), (4096, 32, 512),
+             (7, 16, 8), (3000, 64, 512), (999, 24, 256), (65536, 16, 512)]
+
+
+def _pq_case(seed, n, m, device):
+    rng = np.random.default_rng(seed)
+    codes = torch.as_tensor(rng.integers(0, 256, (n, m)).astype(np.uint8))
+    lut = torch.as_tensor((rng.normal(size=(m, 256)) ** 2)
+                          .astype(np.float32))
+    return codes.to(device), lut.to(device)
+
+
+@pytest.mark.parametrize("n,m,block", PQ_SHAPES)
+def test_pq_adc_matches_plain(card, n, m, block):
+    codes, lut = _pq_case(n + m, n, m, card)
+    before = ops.launches["pq_adc"]
+    got = ops.pq_adc(codes, lut, block_n=block)
+    torch.cuda.synchronize()
+    assert ops.launches["pq_adc"] == before + 1
+    assert got.shape == (n,) and got.dtype == torch.float32
+    torch.testing.assert_close(got, ref.pq_adc_ref(codes, lut), rtol=1e-5,
+                               atol=0)
+
+
+def test_pq_adc_unaligned_codes_take_byte_loads(card):
+    """Codes whose rows are not 16-byte aligned are read byte by byte: the
+    same result as an aligned copy."""
+    codes, lut = _pq_case(5, 777, 16, card)
+    buf = torch.zeros(777 * 16 + 3, dtype=torch.uint8, device=card)
+    buf[3:].copy_(codes.reshape(-1))
+    shifted = buf[3:].view(777, 16)
+    assert shifted.data_ptr() % 16 != 0 and shifted.is_contiguous()
+    torch.testing.assert_close(ops.pq_adc(shifted, lut),
+                               ops.pq_adc(codes, lut), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("n,block", [(100, 64), (513, 512), (7, 8), (65, 64),
+                                     (1_000_000, 512)])
+def test_pq_adc_pad_tail_is_inf(card, n, block):
+    from repro_torch.kernels.pq_adc import pq_adc
+    codes, lut = _pq_case(n, n, 16, card)
+    out = pq_adc(codes, lut, block_n=block, keep_pad=True)
+    assert out.shape[0] % block == 0 and out.shape[0] >= n
+    torch.testing.assert_close(out[:n], ref.pq_adc_ref(codes, lut),
+                               rtol=1e-5, atol=0)
+    assert torch.isinf(out[n:]).all() and (out[n:] > 0).all()
+    guarded = pq_adc(codes, lut, block_n=block, nvalid=n // 2)
+    assert torch.isinf(guarded[n // 2:]).all()
+    torch.testing.assert_close(guarded[:n // 2], out[:n // 2], rtol=0,
+                               atol=0)
+
+
+def test_pq_adc_raises_on_what_the_kernel_does_not_take(card):
+    codes, lut = _pq_case(2, 64, 16, card)
+    with pytest.raises(TypeError):
+        ops.pq_adc(codes.int(), lut)
+    with pytest.raises(TypeError):
+        ops.pq_adc(codes, lut.double())
+    with pytest.raises(ValueError, match=r"\(M, 256\)"):
+        ops.pq_adc(codes, lut[:8].contiguous())
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.pq_adc(codes.t().contiguous().t(), lut)
+    with pytest.raises(ValueError, match="1 to 64 subspaces"):
+        big, big_lut = _pq_case(3, 8, 65, card)
+        ops.pq_adc(big, big_lut)
+    with pytest.raises(ValueError, match="all on the CPU"):
+        ops.pq_adc(codes, lut.cpu())

@@ -169,5 +169,6 @@ def test_cpu_calls_launch_nothing():
     ops.reset_launches()
     arrays = _case(np.random.default_rng(2), 8, 8, 16, 4, 3, 2)
     ops.fused_page_rank(*_torch(arrays))
+    ops.pq_adc(torch.zeros((5, 4), dtype=torch.uint8), torch.ones((4, 256)))
     assert ops.launches == {"page_scan": 0, "page_adc": 0,
-                            "fused_page_rank": 0}
+                            "fused_page_rank": 0, "pq_adc": 0}
