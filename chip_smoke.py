@@ -32,8 +32,12 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
             of back-to-back bare launches on prebuilt buffers, replayed),
             the launcher's time as the wrapper calls it (`launcher_ms`, with
             its prep ops and host dispatch), the plain version's time, its
-            bound from bytes or operations at the H100's spec peaks, and a
-            PyTorch library call's time where one computes the function.
+            bound from bytes or operations at the H100's spec peaks, each
+            block's dynamic shared memory, and one PyTorch library call
+            that computes the same function (page_scan: a full-f32 addmm of
+            the gathered tiles, TF32 off; page_adc: embedding_bag), held to
+            the kernel's tolerances and timed both ways: `library_ms` by
+            graph replay, `library_launcher_ms` from the host.
 6. pq_adc   the PQ filter scan of the paper's memory layout (§4.1.1): the
             bucketed pq_adc over the baseline index's N PQ codes against
             the LUTs of the first 8 queries, over 65,536 random codes
@@ -43,7 +47,8 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
             (rtol 1e-5), the first query's against the host PQ.adc
             (rtol 1e-4), and the pad tail must be +inf. It prints the
             kernel's device time, the launcher's, the plain version's, its
-            bound, and `embedding_bag`'s time as the library yardstick.
+            bound, and `embedding_bag`'s time as the library yardstick
+            (graph replay and launcher, as in [kernels]).
 7. io       the I/O stack on the baseline index: the 1000 queries through
             page_store(batched=True) with the per-query page bitmaps and
             traces, their cross-query coalescing, and replays of the
@@ -110,47 +115,6 @@ def nvidia_smi() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
-
-
-def cuda_ms(torch, fn, reps: int) -> float:
-    """Mean time of one fn() call over `reps` calls issued from the host,
-    by CUDA events, after three warm-up calls: it includes the host's
-    dispatch of every op fn() issues."""
-    for _ in range(3):
-        fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
-def graph_ms(torch, fn, reps: int, replays: int = 5) -> float:
-    """Mean device time of one fn() call: `reps` calls captured in one CUDA
-    graph and replayed `replays` times, by CUDA events, so that no host
-    dispatch falls between the kernels."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        for _ in range(3):
-            fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(reps):
-            fn()
-    graph.replay()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(replays):
-        graph.replay()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / (reps * replays)
 
 
 def phase_build(rt, n: int, vamana_batch: int):
@@ -259,10 +223,11 @@ def phase_kernels(torch, search_out, d: int):
                                                 _pq_device_arrays,
                                                 hop_major_schedule,
                                                 query_luts)
-    from repro_torch.kernels import ref
+    from repro_torch.kernels import _build, ref
     from repro_torch.kernels.ops import (_pad_ids, bucket_size,
                                          launch_fused_page_rank,
                                          launch_page_adc, launch_page_scan)
+    from repro_torch.kernels.timing import cuda_ms, graph_ms
     idx = search_out["index"]
     store = idx.page_store(use_cache=False)
     sched = hop_major_schedule(search_out["trace"][:256])[:256]
@@ -276,6 +241,12 @@ def phase_kernels(torch, search_out, d: int):
     w_u = len(np.unique(sched))
     say("kernels", schedule_pages=w, unique_pages=w_u, padded_to=len(padded),
         n_p=n_p, d=d, M=m, Q=nq)
+    # each page kernel's dynamic shared memory per block at these shapes
+    say("kernels", smem_bytes=json.dumps({
+        "page_scan": _build.library("page_scan").page_scan_smem(d),
+        "page_adc": _build.library("page_adc").page_adc_smem(m),
+        "fused_page_rank": _build.library("fused_page_rank")
+        .fused_page_rank_smem(d, m)}).replace(" ", ""))
 
     exact_ref, adc_ref = ref.fused_page_rank_ref(vecs, codes, ids, qb, lut)
     if lut.shape != (m, 256, nq):
@@ -310,32 +281,37 @@ def phase_kernels(torch, search_out, d: int):
                                                           padded, qb, lut)}
     # the bare kernel launches, on buffers made once, for a CUDA graph; the
     # replayed outputs are held to the same tolerances
-    qsq = torch.sum(torch.square(qb.float()), -1)
     bufs = [torch.empty((len(padded), n_p, nq), device="cuda")
             for _ in range(2)]
     bare = {
-        "page_scan": lambda: launch_page_scan(vecs, padded, qb, qsq,
-                                              bufs[0]),
+        "page_scan": lambda: launch_page_scan(vecs, padded, qb, bufs[0]),
         "page_adc": lambda: launch_page_adc(codes, padded, lut, bufs[0]),
         "fused_page_rank": lambda: launch_fused_page_rank(
-            vecs, codes, padded, qb, lut, qsq, tuple(bufs))}
+            vecs, codes, padded, qb, lut, tuple(bufs))}
     plain = {
         "page_scan": lambda: ref.page_scan_ref(vecs, ids, qb),
         "page_adc": lambda: ref.page_adc_ref(codes, ids, lut),
         "fused_page_rank": lambda: ref.fused_page_rank_ref(vecs, codes, ids,
                                                            qb, lut)}
-    # yardsticks, one library call each on inputs gathered beforehand:
-    # page_scan, L2 (not squared) of the page tiles to the queries;
+    # yardsticks, one library call each computing the kernel's function on
+    # inputs made beforehand: page_scan, the full-f32 product of the
+    # gathered tiles with q^T, times -2, onto |x|^2 + |q|^2 (addmm);
     # page_adc, a sum of LUT rows, one bag of M rows per record.
     # fused_page_rank has two outputs, and no one call computes both.
-    gathered = vecs[ids.long()].reshape(-1, d)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gathered = vecs[ids.long()].reshape(-1, d).float()
+    norms = (torch.sum(gathered * gathered, -1)[:, None]
+             + torch.sum(qb.float() * qb.float(), -1)[None, :])
+    q_t = qb.float().t()
     bags = (codes[ids.long()].reshape(-1, m).long()
             + 256 * torch.arange(m, device="cuda"))
     lut_rows = lut.reshape(m * 256, nq)
     library = {
-        "page_scan": lambda: torch.cdist(gathered, qb),
+        "page_scan": lambda: torch.addmm(norms, gathered, q_t, alpha=-2.0),
         "page_adc": lambda: torch.nn.functional.embedding_bag(
             bags, lut_rows, mode="sum")}
+    torch.testing.assert_close(library["page_scan"]().reshape(w, n_p, nq),
+                               exact_ref, rtol=1e-5, atol=1e-5 * d)
     torch.testing.assert_close(library["page_adc"]().reshape(w, n_p, nq),
                                adc_ref, rtol=1e-4, atol=1e-3)
     rows = []
@@ -349,20 +325,21 @@ def phase_kernels(torch, search_out, d: int):
             err = max(err, float((g - want).abs().max()))
         nbytes, nops = work[name]
         bound_s, bound_by = H100_SXM.bound_s(nbytes, nops)
-        ms = graph_ms(torch, bare[name], 200)
+        ms = graph_ms(bare[name], 200)
         for buf, (_, want, rtol, atol) in zip(bufs, checks[name]):
             torch.testing.assert_close(buf[:w], want, rtol=rtol, atol=atol)
-        launcher_ms = cuda_ms(torch, launch[name], 200)
-        plain_ms = cuda_ms(torch, plain[name], 50)
-        lib_ms = (cuda_ms(torch, library[name], 200) if name in library
-                  else None)
+        launcher_ms = cuda_ms(launch[name], 200)
+        plain_ms = cuda_ms(plain[name], 50)
+        lib = library.get(name)
         row = {"name": name, "route": "cuda", "source": source,
                "replaces": replaces,
                "launches": search_out["launches"][name],
                "max_abs_err": err, "ms": ms, "launcher_ms": launcher_ms,
                "plain_ms": plain_ms,
                "bound_ms": bound_s * 1e3, "bound_by": bound_by,
-               "library_ms": lib_ms}
+               "library_ms": graph_ms(lib, 200) if lib else None,
+               "library_launcher_ms": (cuda_ms(lib, 200) if lib
+                                       else None)}
         say("kernels", **{k: v for k, v in row.items()
                           if k not in ("source", "replaces")})
         rows.append(row)
@@ -377,6 +354,7 @@ def phase_pq_adc(rt, torch, ds, indexes):
     from repro_torch.kernels import ref
     from repro_torch.kernels.ops import bucket_size
     from repro_torch.kernels.pq_adc import launch_pq_adc, pq_adc
+    from repro_torch.kernels.timing import cuda_ms, graph_ms
     pq = indexes["baseline"].pq
     codes = _pq_device_arrays(pq, "cuda")[1]          # the search's copy
     n, m = codes.shape
@@ -426,7 +404,7 @@ def phase_pq_adc(rt, torch, ds, indexes):
         rows = c.shape[0]
         n_out = bucket_size(rows, floor=min(512, bucket_size(rows)))
         out = torch.empty(n_out, device="cuda")
-        ms = graph_ms(torch, lambda: launch_pq_adc(c, lut, n_out, rows, out),
+        ms = graph_ms(lambda: launch_pq_adc(c, lut, n_out, rows, out),
                       200)
         torch.testing.assert_close(out[:rows], ref.pq_adc_ref(c, lut),
                                    rtol=1e-5, atol=0)
@@ -442,10 +420,11 @@ def phase_pq_adc(rt, torch, ds, indexes):
                                              + rows * 4, rows * m)
         timed[label] = {
             "ms": ms,
-            "launcher_ms": cuda_ms(torch, lambda: ops.pq_adc(c, lut), 200),
-            "plain_ms": cuda_ms(torch, lambda: ref.pq_adc_ref(c, lut), 50),
+            "launcher_ms": cuda_ms(lambda: ops.pq_adc(c, lut), 200),
+            "plain_ms": cuda_ms(lambda: ref.pq_adc_ref(c, lut), 50),
             "bound_ms": bound_s * 1e3, "bound_by": bound_by,
-            "library_ms": cuda_ms(torch, library, 200)}
+            "library_ms": graph_ms(library, 200),
+            "library_launcher_ms": cuda_ms(library, 200)}
         say("pq_adc", shape=label, N=rows, n_out=n_out,
             bound_us=round(bound_s * 1e6, 3),
             **{k: v for k, v in timed[label].items() if k != "bound_ms"})
@@ -557,7 +536,8 @@ def main() -> int:
     say("device", kernel_build_s=round(build_s, 3))
     for name, log in _build.build_log.items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            if any(k in line for k in ("entry function", "registers",
+                                       "spill")):
                 say("ptxas", source=name, report=json.dumps(line.strip()))
 
     t_all = time.perf_counter()

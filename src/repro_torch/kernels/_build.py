@@ -27,18 +27,23 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# C signature of every entry point: (argtypes); each returns cudaError_t.
+# C signature of every entry point: (argtypes). Each returns an int: the
+# launchers a cudaError_t, the `*_smem` functions a block's dynamic shared
+# memory in bytes.
 SIGNATURES = {
     "page_scan": {
-        "page_scan_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
-        "page_scan_bf16": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+        "page_scan_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+        "page_scan_bf16": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+        "page_scan_smem": (_I,),
     },
     "page_adc": {
         "page_adc_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+        "page_adc_smem": (_I,),
     },
     "fused_page_rank": {
-        "fused_page_rank_f32": (_P,) * 8 + (_I,) * 5 + (_P,),
-        "fused_page_rank_bf16": (_P,) * 8 + (_I,) * 5 + (_P,),
+        "fused_page_rank_f32": (_P,) * 7 + (_I,) * 5 + (_P,),
+        "fused_page_rank_bf16": (_P,) * 7 + (_I,) * 5 + (_P,),
+        "fused_page_rank_smem": (_I, _I),
     },
     "pq_adc": {
         "pq_adc_f32": (_P, _P, _P, _I, _I, _I, _I, _I, _P),

@@ -73,21 +73,19 @@ def _check_adc_args(page_codes, ids, lut) -> None:
                          f"{page_codes.shape[2]} subspaces of 256 codes")
 
 
-def launch_page_scan(pages, ids, q, qsq=None, out=None):
+def launch_page_scan(pages, ids, q, out=None):
     """The page_scan kernel on an already padded, checked int32 schedule.
-    qsq (Q,) f32 and out (W, n_p, Q) f32 are made here unless given."""
+    out (W, n_p, Q) f32 is made here unless given; the kernel computes the
+    norms itself."""
     _, n_p, d = pages.shape
     w, nq = ids.shape[0], q.shape[0]
-    if qsq is None:
-        qsq = torch.sum(torch.square(q.float()), -1)
     if out is None:
         out = torch.empty((w, n_p, nq), dtype=torch.float32,
                           device=pages.device)
     fn = getattr(_build.library("page_scan"),
                  f"page_scan_{_SUFFIX[pages.dtype]}")
     _raise_on(fn(pages.data_ptr(), ids.data_ptr(), q.data_ptr(),
-                 qsq.data_ptr(), out.data_ptr(), w, n_p, d, nq,
-                 _stream(pages)), "page_scan")
+                 out.data_ptr(), w, n_p, d, nq, _stream(pages)), "page_scan")
     return out
 
 
@@ -106,16 +104,13 @@ def launch_page_adc(page_codes, ids, lut, out=None):
     return out
 
 
-def launch_fused_page_rank(pages, page_codes, ids, q, lut, qsq=None,
-                           out=None):
+def launch_fused_page_rank(pages, page_codes, ids, q, lut, out=None):
     """The fused kernel on an already padded, checked int32 schedule and an
-    (M, 256, Q) LUT. qsq (Q,) f32 and out, a pair of (W, n_p, Q) f32, are
-    made here unless given."""
+    (M, 256, Q) LUT. out, a pair of (W, n_p, Q) f32, is made here unless
+    given."""
     _, n_p, d = pages.shape
     m = page_codes.shape[2]
     w, nq = ids.shape[0], q.shape[0]
-    if qsq is None:
-        qsq = torch.sum(torch.square(q.float()), -1)
     if out is None:
         exact = torch.empty((w, n_p, nq), dtype=torch.float32,
                             device=pages.device)
@@ -123,7 +118,7 @@ def launch_fused_page_rank(pages, page_codes, ids, q, lut, qsq=None,
     fn = getattr(_build.library("fused_page_rank"),
                  f"fused_page_rank_{_SUFFIX[pages.dtype]}")
     _raise_on(fn(pages.data_ptr(), page_codes.data_ptr(), ids.data_ptr(),
-                 q.data_ptr(), qsq.data_ptr(), lut.data_ptr(),
+                 q.data_ptr(), lut.data_ptr(),
                  out[0].data_ptr(), out[1].data_ptr(), w, n_p, d, m, nq,
                  _stream(pages)), "fused_page_rank")
     return out

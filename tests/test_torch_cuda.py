@@ -15,12 +15,26 @@ from repro_torch.kernels import ref
 pytestmark = pytest.mark.cuda
 
 # (P, n_p, d, M, W, Q): the CPU sweeps' shapes, a ragged query tile, a
-# width that needs padding, and the main path's (deep-like, R=64)
+# width that needs padding, and the main path's (deep-like, R=64); then the
+# edges of the kernels' block of 48 stacked records x 64 queries: schedules
+# shorter than a block and not a multiple of it (W = 4, 12 before the
+# bucket), Q = 1 and Q not a multiple of 64 (65 also takes the scalar
+# path), n_p in {1, 6, 9, 16}, d in {96, 100, 256} (bf16 at d = 100 takes
+# the scalar path; d = 256 is staged in two rounds of 128), d = 130
+# (a second round of 2 columns, padded to 4), and M = 6 (codes staged byte
+# by byte)
 SHAPES = [(16, 8, 128, 16, 4, 1), (64, 8, 128, 16, 8, 4),
           (32, 16, 256, 8, 6, 8), (8, 8, 128, 4, 3, 2),
           (128, 8, 128, 16, 16, 16), (64, 9, 96, 16, 37, 300),
-          (4096, 6, 96, 16, 256, 256)]
+          (4096, 6, 96, 16, 256, 256),
+          (64, 1, 96, 16, 4, 65), (64, 6, 96, 16, 12, 1),
+          (64, 6, 100, 16, 4, 300), (64, 9, 100, 8, 12, 65),
+          (64, 16, 256, 16, 12, 300), (64, 1, 256, 16, 12, 1),
+          (64, 16, 96, 16, 4, 64), (64, 9, 256, 16, 12, 65),
+          (64, 6, 130, 16, 12, 300), (64, 6, 96, 6, 12, 64)]
 TOLS = {torch.float32: 1e-5, torch.bfloat16: 0.3}
+DTYPES = pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                                 ids=["f32", "bf16"])
 
 
 @pytest.fixture
@@ -48,8 +62,7 @@ def _case(seed, n_pages, n_p, d, m, w, q, dtype, device):
 
 
 @pytest.mark.parametrize("n_pages,n_p,d,m,w,q", SHAPES)
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
-                         ids=["f32", "bf16"])
+@DTYPES
 def test_kernels_match_plain(card, n_pages, n_p, d, m, w, q, dtype):
     pages, codes, ids, qs, lut = _case(n_pages + w, n_pages, n_p, d, m, w,
                                        q, dtype, card)
@@ -76,6 +89,66 @@ def test_duplicate_pages_score_identically(card):
     exact, adc = ops.fused_page_rank(pages, codes, ids, qs, lut)
     torch.testing.assert_close(exact[0], exact[1], rtol=0, atol=0)
     torch.testing.assert_close(adc[0], adc[5], rtol=0, atol=0)
+
+
+@DTYPES
+def test_duplicate_pages_inside_one_block_match_plain(card, dtype):
+    """Page 5 fills most of the first block of 48 stacked records (n_p = 6),
+    and pages repeat across the block's edge."""
+    pages, codes, _, qs, lut = _case(11, 16, 6, 96, 16, 12, 300, dtype, card)
+    ids = torch.tensor([5, 5, 5, 2, 5, 9, 2, 5, 5, 5, 0, 5], dtype=torch.int32,
+                       device=card)
+    exact, adc = ops.fused_page_rank(pages, codes, ids, qs, lut)
+    want_exact, want_adc = ref.fused_page_rank_ref(pages, codes, ids, qs, lut)
+    tol = TOLS[dtype]
+    torch.testing.assert_close(exact, want_exact, rtol=tol, atol=tol * 96)
+    torch.testing.assert_close(adc, want_adc, rtol=1e-4, atol=1e-3)
+    for a, b in ((0, 1), (0, 7), (3, 6)):
+        torch.testing.assert_close(exact[a], exact[b], rtol=0, atol=0)
+        torch.testing.assert_close(adc[a], adc[b], rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("n_pages,n_p,d,m,w,q", SHAPES)
+@DTYPES
+def test_fused_exact_is_page_scan_bit_for_bit(card, n_pages, n_p, d, m, w, q,
+                                              dtype):
+    """Both kernels score the exact half with the one routine of
+    common.cuh, in the same order, so their outputs are equal."""
+    pages, codes, ids, qs, lut = _case(n_pages + w, n_pages, n_p, d, m, w,
+                                       q, dtype, card)
+    exact, adc = ops.fused_page_rank(pages, codes, ids, qs, lut)
+    torch.testing.assert_close(exact, ops.page_scan(pages, ids, qs), rtol=0,
+                               atol=0)
+    torch.testing.assert_close(adc, ops.page_adc(codes, ids, lut), rtol=0,
+                               atol=0)
+
+
+def _shifted(t, by: int):
+    """A contiguous copy of t whose data starts `by` elements past a
+    16-byte boundary."""
+    buf = torch.zeros(t.numel() + by, dtype=t.dtype, device=t.device)
+    buf[by:].copy_(t.reshape(-1))
+    return buf[by:].view(t.shape)
+
+
+@DTYPES
+def test_unaligned_tensors_take_the_scalar_path(card, dtype):
+    """Pages, queries or a LUT off a 16-byte boundary are read by the
+    scalar instantiations, and codes off a 4-byte boundary byte by byte:
+    the same sums in the same order as the aligned paths, so the same
+    bits."""
+    pages, codes, ids, qs, lut = _case(13, 32, 6, 96, 16, 12, 64, dtype, card)
+    exact, adc = ops.fused_page_rank(pages, codes, ids, qs, lut)
+    pages_u, qs_u, lut_u = _shifted(pages, 1), _shifted(qs, 1), \
+        _shifted(lut, 1)
+    codes_u = _shifted(codes, 1)
+    assert pages_u.data_ptr() % 16 and qs_u.data_ptr() % 16
+    assert codes_u.data_ptr() % 4
+    fused = ops.fused_page_rank(pages_u, codes_u, ids, qs_u, lut_u)
+    for got in (ops.page_scan(pages_u, ids, qs_u), fused[0]):
+        torch.testing.assert_close(got, exact, rtol=0, atol=0)
+    for got in (ops.page_adc(codes_u, ids, lut_u), fused[1]):
+        torch.testing.assert_close(got, adc, rtol=0, atol=0)
 
 
 def test_wrappers_raise_on_what_the_kernels_do_not_take(card):
