@@ -55,6 +55,39 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
             traces through LRU, FIFO and 2Q caches of 2% of the index's
             page bytes, LRU with prefetch 2, and 4 shards in each
             placement, asserting the conservation identities of each.
+8. serve    AnnServer (src/repro_torch/serving) over the baseline index:
+            (a) the closed loop, default ServerConfig (max_batch 16), 32
+                workers x 32 rounds of ds.queries; its ids must equal
+                DiskIndex.search of the same queries; it prints the report
+                row, recall@10 and the served queries/s on the card (host
+                clock, synchronised);
+            (b) the open loop under overload control: an LRU cache of
+                IO_CACHE_FRAC of the page bytes, admission "degrade",
+                Poisson arrivals at twice (a)'s modelled QPS for about 1000
+                arrivals, with the sanitizer armed: offered == admitted +
+                shed, and queue + service + interference == latency for
+                every query;
+            (c) streaming, durable and traced: a MutableIndex over the
+                baseline index with a MutationJournal (group commit 8),
+                served with pipeline="fused" under MutationMix(insert 0.1,
+                delete 0.05, threshold compaction) from a pool of 10,000
+                fresh deep-like vectors, with a Tracer. The fused_page_rank
+                launch count is set to 0 just before the window and read
+                just after (it must be above 0); the Chrome trace must
+                validate. The window's first served batch, the first after
+                each flush or compaction and its last are run again through
+                fused_page_rank on the tiles they read (Q = 16, max_batch)
+                and held against the plain version on the host layout's
+                copy of the same pages, which a stale code or vector tile
+                fails. Each served search is timed, those that re-upload
+                the layout after a rewrite apart. recover(base, journal)
+                must equal the live index in tombstones, free list, dirty
+                set, overlap_ratio and the ids and dists of 64 queries. It
+                prints the seconds of the MutableIndex's construction, of
+                each flush and compaction, and of the recovery, and times
+                the 1M graph's reverse adjacency built edge by edge as the
+                reference does beside the port's, whose sets of 10,000
+                sampled vertices must equal it.
 
 The last lines are the kernels' JSON, the card's name and power limit, and
 {"ok": true, "device": {...}}. It needs one card, and exits non-zero without
@@ -103,6 +136,15 @@ SEARCH_KERNELS = ("page_scan", "page_adc", "fused_page_rank")
 PQ_MICRO_N = 65_536
 # [io]: the dynamic caches hold this share of the index's page bytes
 IO_CACHE_FRAC = 0.02
+# [serve]: arrivals per open-loop window, the streaming window's insert
+# pool, and its compaction threshold: a dirty-page fraction of 1e-4 is
+# about 17 of the 1M index's 166,667 pages (the default 0.25 would never
+# fire inside one window)
+SERVE_ARRIVALS = 1000
+SERVE_POOL = 10_000
+SERVE_COMPACT_THRESHOLD = 1e-4
+# [serve]: vertices whose reverse-adjacency sets are compared at 1M
+REV_SAMPLE = 10_000
 
 
 def say(phase: str, **kv) -> None:
@@ -503,6 +545,311 @@ def phase_io(rt, torch, ds, indexes):
     say("io", phase_s=round(time.perf_counter() - t0, 3))
 
 
+def _row(rep) -> str:
+    return json.dumps(rep.row(), separators=(",", ":"))
+
+
+def _plain_reverse_adjacency(graph):
+    """The reference's reverse adjacency v -> {u : u->v}, built edge by
+    edge (src/repro/mutation/mutable_index.py:177-181)."""
+    rev = [set() for _ in range(graph.shape[0])]
+    src, col = np.nonzero(graph >= 0)
+    for u, v in zip(src.tolist(), graph[src, col].tolist()):
+        rev[v].add(int(u))
+    return rev
+
+
+def _served_batch(store, pq, queries, page_trace):
+    """What one served batch's fused_page_rank launch read: the store's
+    device vector and code tiles (on the card, copies of the host arrays
+    that a rewrite replaces and never writes, so holding them keeps what
+    this batch read), its schedule and queries, and the same pages'
+    vectors and codes copied from the host layout and PQ codes at this
+    moment, the plain version's inputs."""
+    from repro_torch.core.search_kernel import (MEASURE_PAGES_CAP,
+                                                hop_major_schedule)
+    sched = hop_major_schedule(page_trace)[:MEASURE_PAGES_CAP]
+    if len(sched) == 0:                # measure_step_us launched nothing
+        return None
+    lay = store.layout
+    vids = lay.page_vids[sched]
+    codes = pq.codes[np.clip(vids, 0, pq.codes.shape[0] - 1)]
+    codes[vids < 0] = 0
+    return {"vecs": store.kernel_arrays()[1],
+            "codes": store.__dict__["_device_page_codes"],
+            "sched": sched, "queries": np.array(queries, np.float32),
+            "plain_vecs": lay.page_vecs[sched].copy(), "plain_codes": codes}
+
+
+def _check_served_batch(torch, pq, batch) -> float:
+    """fused_page_rank on one served batch's own device tiles, held
+    against the plain version on the host layout's copy of the same pages,
+    at the [kernels] tolerances; returns the larger max abs error."""
+    from repro_torch import kernels as ops
+    from repro_torch.core.search_kernel import _pq_device_arrays, query_luts
+    from repro_torch.kernels import ref
+    dev = batch["vecs"].device
+    d = batch["vecs"].shape[2]
+    qb = torch.as_tensor(batch["queries"], device=dev)
+    lut = query_luts(_pq_device_arrays(pq, dev)[0], qb)
+    ids = torch.as_tensor(batch["sched"].astype(np.int32), device=dev)
+    got = ops.fused_page_rank(batch["vecs"], batch["codes"], ids, qb, lut)
+    want = ref.fused_page_rank_ref(
+        torch.as_tensor(batch["plain_vecs"], device=dev),
+        torch.as_tensor(batch["plain_codes"], device=dev),
+        torch.arange(len(batch["sched"]), dtype=torch.int32, device=dev),
+        qb, lut)
+    err = 0.0
+    for g, w, rtol, atol in zip(got, want, (1e-5, 1e-4), (1e-5 * d, 1e-3)):
+        if g.shape != w.shape or not torch.isfinite(g).all():
+            raise RuntimeError(f"served fused_page_rank: malformed output "
+                               f"{tuple(g.shape)}")
+        torch.testing.assert_close(g, w, rtol=rtol, atol=atol)
+        err = max(err, float((g - w).abs().max()))
+    return err
+
+
+def phase_serve(rt, torch, ds, indexes):
+    """AnnServer on the card: closed loop, overloaded open loop, and a
+    streaming, journaled, traced window with a recovery."""
+    from repro_torch import kernels as ops
+    from repro_torch import sanitize
+    from repro_torch.core import search_kernel
+    from repro_torch.mutation import (JournalConfig, MutableIndex,
+                                      MutationJournal, MutationMix, recover)
+    from repro_torch.mutation.mutable_index import _ReverseAdjacency
+    from repro_torch.obs import (CONSERVATION_TOL_US, Tracer,
+                                 validate_chrome_trace)
+    from repro_torch.serving import (AdmissionConfig, AnnServer,
+                                     ServerConfig, ann_server)
+    t_phase = time.perf_counter()
+    idx = indexes["baseline"]
+    cfg = rt.get_preset("baseline")
+    model = rt.SSDModel()
+
+    # (a) closed loop
+    srv = AnnServer(idx, cfg, model=model)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rep = srv.serve_closed_loop(ds.queries, workers=32, rounds=32)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    # the facade on the same queries in the server's batch shape
+    want = idx.search(ds.queries[rep.query_indices], cfg,
+                      batch=srv.server_cfg.max_batch)
+    same = int(np.all(rep.stats.ids == want.ids, axis=1).sum())
+    recall = rt.recall_at_k(rep.stats.ids, ds.gt[rep.query_indices], 10)
+    say("serve", part="closed", queries=rep.queries,
+        ids_equal_facade=f"{same}/{rep.queries}",
+        recall_at_10=round(recall, 4),
+        served_qps_on_card=round(rep.queries / wall, 1),
+        serve_s=round(wall, 3), modelled_row=_row(rep))
+    if same != rep.queries or not np.isfinite(rep.stats.dists).all():
+        raise RuntimeError("closed loop: the server's results are not the "
+                           "facade's")
+    if recall < 0.7:
+        raise RuntimeError(f"closed loop: recall@10 {recall} below 0.7")
+
+    # (b) open loop under overload control
+    lay = idx.layout
+    cache_bytes = int(IO_CACHE_FRAC * lay.num_pages * lay.page_bytes)
+    rate = 2.0 * rep.qps
+    srv = AnnServer(idx, cfg, model=model, server_cfg=ServerConfig(
+        cache_policy="lru", cache_bytes=cache_bytes,
+        admission=AdmissionConfig(policy="degrade")))
+    prev = sanitize.set_enabled(True)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rep_o = srv.serve_open_loop(ds.queries, rate_qps=rate,
+                                    duration_us=SERVE_ARRIVALS / rate * 1e6,
+                                    seed=0)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        sanitize.set_enabled(prev)
+    at = rep_o.attribution
+    resid = float(np.abs(at["queue_us"] + at["service_us"]
+                         + at["interference_us"] - at["latency_us"]).max())
+    say("serve", part="open-degrade", rate_qps=round(rate, 1),
+        offered=rep_o.offered, admitted=rep_o.admitted, shed=rep_o.shed,
+        degraded=rep_o.degraded, attribution_max_residual_us=resid,
+        served_qps_on_card=round(rep_o.completed / wall, 1),
+        serve_s=round(wall, 3), modelled_row=_row(rep_o))
+    if rep_o.offered != rep_o.admitted + rep_o.shed or \
+            rep_o.completed != rep_o.admitted:
+        raise RuntimeError("open loop: admission conservation broken")
+    if resid > CONSERVATION_TOL_US or float(min(
+            at["queue_us"].min(), at["interference_us"].min())) < 0:
+        raise RuntimeError("open loop: latency attribution broken")
+
+    # (c) streaming, durable and traced
+    times = {"flush": [], "compact": []}
+
+    class TimedMutableIndex(MutableIndex):
+        def flush(self):
+            t0 = time.perf_counter()
+            out = super().flush()
+            torch.cuda.synchronize()
+            times["flush"].append(round(time.perf_counter() - t0, 3))
+            return out
+
+        def compact(self, max_pages=None):
+            t0 = time.perf_counter()
+            out = super().compact(max_pages)
+            torch.cuda.synchronize()
+            times["compact"].append(round(time.perf_counter() - t0, 3))
+            return out
+
+    pool = rt.make_dataset("deep-like", n=SERVE_POOL, nq=1, seed=1).vectors
+    journal = MutationJournal(JournalConfig(group_commit=8))
+    t0 = time.perf_counter()
+    live = TimedMutableIndex(idx, journal=journal)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    fused = rt.get_preset("pipeline", pipeline="fused")
+    srv = AnnServer(live, fused, model=model)
+    mix = MutationMix(insert_frac=0.1, delete_frac=0.05,
+                      compaction="threshold",
+                      threshold=SERVE_COMPACT_THRESHOLD)
+    tracer = Tracer()
+    rate = rep.qps
+    # Each served search is timed (synchronised), split by whether it
+    # re-uploads the layout the last flush or compaction dropped; the
+    # fused_page_rank inputs of the window's first batch, of the first
+    # batch after each rewrite and of its last batch are kept for a check
+    # against the plain version after the window.
+    search_s = {"rewrite": [], "other": []}
+    served = {"rewrites": [], "last": None}
+
+    def timed_search(store, *a, **kw):
+        bottom = store
+        while hasattr(bottom, "inner"):
+            bottom = bottom.inner
+        fresh = bottom._kernel_cache is None
+        t0 = time.perf_counter()
+        out = real_search(store, *a, **kw)
+        torch.cuda.synchronize()
+        search_s["rewrite" if fresh else "other"].append(
+            time.perf_counter() - t0)
+        if fresh:                      # measure_and_keep ran inside
+            served["rewrites"].append(served["last"])
+        return out
+
+    def measure_and_keep(store, pq, queries, page_trace, **kw):
+        out = real_measure(store, pq, queries, page_trace, **kw)
+        served["last"] = _served_batch(store, pq, queries, page_trace)
+        return out
+
+    real_search = ann_server.search_batched
+    real_measure = search_kernel.measure_step_us
+    ann_server.search_batched = timed_search
+    search_kernel.measure_step_us = measure_and_keep
+    prev = sanitize.set_enabled(True)
+    try:
+        ops.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rep_m = srv.serve_open_loop(ds.queries, rate_qps=rate,
+                                    duration_us=SERVE_ARRIVALS / rate * 1e6,
+                                    seed=0, mutation_mix=mix,
+                                    insert_pool=pool, tracer=tracer)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(ops.launches)
+    finally:
+        sanitize.set_enabled(prev)
+        ann_server.search_batched = real_search
+        search_kernel.measure_step_us = real_measure
+    checked = [b for b in served["rewrites"] + [served["last"]]
+               if b is not None]
+    if not checked:
+        raise RuntimeError("the streaming window kept no served batch")
+    served_err = max(_check_served_batch(torch, live.pq, b)
+                     for b in checked)
+    other_mean = float(np.mean(search_s["other"]))
+    rewrite_excess = sum(search_s["rewrite"]) - other_mean * len(
+        search_s["rewrite"])
+    doc = tracer.to_chrome()
+    problems = validate_chrome_trace(doc)
+    say("serve", part="streaming", rate_qps=round(rate, 1),
+        inserts=rep_m.inserts, deletes=rep_m.deletes,
+        flushes=rep_m.flushes, compactions=rep_m.compactions,
+        journal_writes=rep_m.journal_writes,
+        fused_page_rank_launches=launches["fused_page_rank"],
+        measured_step_us=round(rep_m.measured_step_us, 3),
+        trace_events=len(doc["traceEvents"]),
+        trace_problems=len(problems),
+        served_batches_checked=len(checked),
+        served_fused_max_abs_err=served_err,
+        searches=len(search_s["rewrite"]) + len(search_s["other"]),
+        rewrite_search_s=json.dumps([round(t, 4) for t in
+                                     search_s["rewrite"]]).replace(" ", ""),
+        other_search_s_mean=round(other_mean, 5),
+        rewrite_excess_s=round(rewrite_excess, 4),
+        rewrite_excess_share=round(rewrite_excess / wall, 4),
+        served_qps_on_card=round(rep_m.completed / wall, 1),
+        serve_s=round(wall, 3), modelled_row=_row(rep_m))
+    if launches["fused_page_rank"] == 0:
+        raise RuntimeError("the streaming window launched no "
+                           "fused_page_rank kernel")
+    if problems:
+        raise RuntimeError(f"the Chrome trace does not validate: "
+                           f"{problems[:5]}")
+    if rep_m.flushes == 0 or rep_m.compactions == 0:
+        raise RuntimeError("the streaming window ran no flush or no "
+                           "compaction")
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rec = recover(idx, journal)
+    torch.cuda.synchronize()
+    recover_s = time.perf_counter() - t0
+    q64 = ds.queries[:64]
+    a, b = live.search(q64), rec.search(q64)
+    checks = {"tombstones": rec.pending_tombstones == live.pending_tombstones,
+              "free": rec.free_pages == live.free_pages,
+              "dirty": rec.dirty_pages == live.dirty_pages,
+              "overlap_ratio": rec.overlap_ratio() == live.overlap_ratio(),
+              "ids": bool(np.array_equal(a.ids, b.ids)),
+              "dists": bool(np.array_equal(a.dists, b.dists))}
+    # the reverse adjacency of the 1M graph, the reference's way (edge by
+    # edge into a list of sets) and the port's (one sort by target, each
+    # set made on first read); the sets of REV_SAMPLE vertices must agree
+    # (reading all 1M of the port's takes about 40 s)
+    t0 = time.perf_counter()
+    plain_rev = _plain_reverse_adjacency(idx.graph)
+    plain_rev_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    port_rev = _ReverseAdjacency(idx.graph, idx.device)
+    torch.cuda.synchronize()
+    port_rev_s = time.perf_counter() - t0
+    sample = np.random.default_rng(0).choice(len(plain_rev), REV_SAMPLE,
+                                             replace=False)
+    t0 = time.perf_counter()
+    rev_equal = (len(port_rev) == len(plain_rev)
+                 and all(port_rev[v] == plain_rev[v] for v in sample))
+    rev_read_s = time.perf_counter() - t0
+    del plain_rev, port_rev
+    say("serve", part="recovery", mutable_index_build_s=round(build_s, 3),
+        flush_s=json.dumps(times["flush"]).replace(" ", ""),
+        compact_s=json.dumps(times["compact"]).replace(" ", ""),
+        recover_s=round(recover_s, 3),
+        recovery_us_modelled=round(rec.last_recovery_us, 1),
+        ops_replayed=rec.ops_applied,
+        rev_plain_s=round(plain_rev_s, 3), rev_port_s=round(port_rev_s, 3),
+        rev_port_read_s=round(rev_read_s, 3), rev_sampled=REV_SAMPLE,
+        rev_equal_plain=rev_equal, equal=json.dumps(checks).replace(" ", ""))
+    if not all(checks.values()):
+        raise RuntimeError(f"the recovered index differs from the live "
+                           f"one: {checks}")
+    if not rev_equal:
+        raise RuntimeError("the port's reverse adjacency differs from the "
+                           "reference's edge-by-edge sets")
+    say("serve", phase_s=round(time.perf_counter() - t_phase, 3))
+    return launches["fused_page_rank"]
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n", type=int, default=1_000_000,
@@ -550,6 +897,10 @@ def main() -> int:
     rows.append(phase_pq_adc(rt, torch, ds, indexes))
     say("pq_adc", phase_s=round(time.perf_counter() - t0, 3))
     phase_io(rt, torch, ds, indexes)
+    serve_launches = phase_serve(rt, torch, ds, indexes)
+    for row in rows:
+        if row["name"] == "fused_page_rank":
+            row["serve_launches"] = serve_launches
     say("done", phases_s=round(time.perf_counter() - t_all, 3),
         peak_device_gib=round(torch.cuda.max_memory_allocated() / 2**30, 3),
         peak_host_gib=round(resource.getrusage(resource.RUSAGE_SELF)

@@ -5,6 +5,13 @@ attributes, as plain numpy arrays (duck typing: this module imports nothing
 of `repro`), and returns the port's `DiskIndex` on `device` with the same
 layout, PQ codebook and codes, graph, medoid, cache mask, MemGraph and
 search configuration. Both packages can then search the very same index.
+
+`mutable_from_reference(ref_mutable, device)` does the same for a `repro`
+MutableIndex: the port's MutableIndex over the converted base index,
+restored from the reference's mutable state as `mutable_state` reads it
+(snapshot()'s format, without billing a snapshot), so that both packages
+hold the same layout, graph, codes, tombstones, delta, page sets and
+counters.
 """
 from __future__ import annotations
 
@@ -17,6 +24,8 @@ from repro_torch.core.engine import DiskIndex, SearchConfig
 from repro_torch.core.memgraph import MemGraph
 from repro_torch.core.pages import PageLayout
 from repro_torch.core.pq import PQ
+from repro_torch.mutation.mutable_index import (MutableIndex, MutationConfig,
+                                                mutable_state)
 
 
 def _arr(a) -> np.ndarray:
@@ -52,3 +61,15 @@ def index_from_reference(idx, device=None) -> DiskIndex:
                      config_from_reference(idx.cfg), memgraph=memgraph,
                      cached=_arr(idx.cached),
                      build_stats=dict(idx.build_stats), device=device)
+
+
+def mutable_from_reference(ref_mutable, device=None) -> MutableIndex:
+    """The port's MutableIndex with `ref_mutable`'s base index and mutable
+    state, on `device`. The journal stays with the reference: the port's
+    index has none."""
+    device = resolve_device(device)
+    mcfg = MutationConfig(**{f.name: getattr(ref_mutable.mcfg, f.name)
+                             for f in dataclasses.fields(MutationConfig)})
+    idx = MutableIndex(index_from_reference(ref_mutable.base, device), mcfg)
+    idx.restore(mutable_state(ref_mutable))
+    return idx

@@ -2,8 +2,7 @@
 Copied from src/repro/io/page_store.py (the port imports nothing of
 `repro`), with two changes: `kernel_arrays()` returns torch tensors on the
 store's device, built once, with int64 ids so that the search's gathers
-index with them directly; and `build_store` takes the stack's `device` and
-refuses the mutable stack, which the port does not have yet.
+index with them directly; and `build_store` takes the stack's `device`.
 
   ArrayPageStore    — base store over a PageLayout's arrays (the simulated
                       SSD; every fetched page is a charged read).
@@ -483,10 +482,14 @@ def build_store(layout, cached_vertices: Optional[np.ndarray] = None,
     owning shard's queue (both still need a dynamic `cache_policy` to hold
     the state, same as on one device).
 
-    `mutable=True`, `journal=` and `crash=` configure the streaming-update
-    subsystem's MutablePageStore, which the port does not have yet
-    (ROADMAP.md A8, mutation and durability): they raise
-    NotImplementedError, and nothing runs in their place.
+    `mutable=True` wraps the finished stack in a `MutablePageStore`
+    (repro_torch/mutation/mutable_store.py): page-version tracking plus
+    cache invalidation on rewrite, the store-side half of the
+    streaming-update subsystem. `journal=` (a MutationJournal) arms its
+    two-phase write protocol — every data-page write is preceded by a
+    synced intent record — and `crash=` (a CrashPoint) injects a kill at a
+    numbered I/O boundary; both require `mutable=True` (a frozen stack
+    never writes).
 
     Every knob that only configures a subordinate layer is validated here:
     a silently ignored `cache_bytes`/`tenant_shares`/`rebalance_every`/
@@ -498,11 +501,6 @@ def build_store(layout, cached_vertices: Optional[np.ndarray] = None,
     from repro_torch.io.sharded_store import (ShardedPageStore,
                                               make_placement,
                                               make_shard_caches)
-    if mutable or journal is not None or crash is not None:
-        raise NotImplementedError(
-            "build_store(mutable=/journal=/crash=) needs the MutablePageStore "
-            "of the mutation slice (ROADMAP.md A8, mutation and durability), "
-            "which repro_torch does not have yet")
     known = ("none", "static-vertex") + DYNAMIC_POLICIES
     if cache_policy not in known:
         raise ValueError(f"unknown cache_policy {cache_policy!r}; "
@@ -567,4 +565,12 @@ def build_store(layout, cached_vertices: Optional[np.ndarray] = None,
                            rebalance_every=rebalance_every)
         store = (PrefetchingPageStore(store, cache, lookahead=prefetch)
                  if prefetch > 0 else SharedCachePageStore(store, cache))
+    if not mutable and (journal is not None or crash is not None):
+        raise ValueError(
+            "journal=/crash= configure the MutablePageStore's two-phase "
+            "write protocol — set mutable=True (a frozen stack never "
+            "writes, so there is nothing to journal or crash)")
+    if mutable:
+        from repro_torch.mutation.mutable_store import MutablePageStore
+        store = MutablePageStore(store, journal=journal, crash=crash)
     return store

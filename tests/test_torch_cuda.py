@@ -254,3 +254,65 @@ def test_pq_adc_raises_on_what_the_kernel_does_not_take(card):
         ops.pq_adc(big, big_lut)
     with pytest.raises(ValueError, match="all on the CPU"):
         ops.pq_adc(codes, lut.cpu())
+
+
+def _integer_index(device):
+    """A small port index whose vectors, queries and PQ centroids are
+    small integers, so every distance is exact in float32 on either
+    device: the card's search and the CPU's must agree bit for bit."""
+    from repro_torch import build_index, get_preset
+    from repro_torch.convert import index_from_reference
+    from repro_torch.core.dataset import Dataset
+    from repro_torch.core.pq import PQ, encode
+    rng = np.random.default_rng(0)
+    x = rng.integers(0, 8, (1024, 32)).astype(np.float32)
+    q = rng.integers(0, 8, (32, 32)).astype(np.float32)
+    ds = Dataset("tie-free", x, q, np.zeros((32, 10), np.int32), "float")
+    idx = build_index(ds, get_preset("baseline"), R=16, L_build=32,
+                      device="cpu")
+    cent = rng.integers(0, 8, (16, 256, 2)).astype(np.float32)
+    idx.pq = PQ(centroids=cent, codes=encode(x, cent, device="cpu"), m=16,
+                dsub=2)
+    return ds, idx, index_from_reference(idx, device)
+
+
+def _rows(reps):
+    return [{k: v for k, v in r.row().items() if k != "measured_step_us"}
+            for r in reps]
+
+
+def test_fused_server_on_the_card_equals_the_cpu(card):
+    """A pipeline="fused" AnnServer over a frozen and over a journaled
+    MutableIndex: the card's rows equal the CPU port's, and each window
+    launched the fused_page_rank kernel."""
+    from repro_torch import get_preset
+    from repro_torch.mutation import (JournalConfig, MutableIndex,
+                                      MutationConfig, MutationJournal,
+                                      MutationMix)
+    from repro_torch.serving import AnnServer, ServerConfig
+    ds, cpu_idx, gpu_idx = _integer_index(card)
+    cfg = get_preset("pipeline", L=32, pipeline="fused")
+    pool = np.random.default_rng(1).integers(0, 8, (64, 32)).astype(
+        np.float32)
+    mix = MutationMix(insert_frac=0.2, delete_frac=0.1,
+                      compaction="threshold", threshold=0.05)
+    out = {}
+    for name, base in (("cpu", cpu_idx), ("card", gpu_idx)):
+        ops.reset_launches()
+        closed = AnnServer(base, cfg, server_cfg=ServerConfig(max_batch=8))
+        rep_c = closed.serve_closed_loop(ds.queries, workers=8, rounds=2)
+        mut = MutableIndex(base, MutationConfig(flush_threshold=8,
+                                                insert_L=8),
+                           journal=MutationJournal(JournalConfig(4)))
+        srv = AnnServer(mut, cfg, server_cfg=ServerConfig(max_batch=8))
+        rep_o = srv.serve_open_loop(ds.queries, rate_qps=8000.0,
+                                    duration_us=15_000.0, seed=3,
+                                    mutation_mix=mix, insert_pool=pool)
+        torch.cuda.synchronize()
+        out[name] = (rep_c, rep_o, dict(ops.launches))
+        assert rep_o.flushes > 0 and rep_c.measured_step_us > 0
+    (c_c, c_o, c_l), (g_c, g_o, g_l) = out["cpu"], out["card"]
+    assert _rows([g_c, g_o]) == _rows([c_c, c_o])
+    np.testing.assert_array_equal(g_o.stats.ids, c_o.stats.ids)
+    np.testing.assert_array_equal(g_o.stats.dists, c_o.stats.dists)
+    assert c_l["fused_page_rank"] == 0 and g_l["fused_page_rank"] > 0

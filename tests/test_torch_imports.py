@@ -16,7 +16,22 @@ PORT = REPO / "src" / "repro_torch"
 
 def test_import_pulls_in_no_jax_repro_or_triton():
     code = ("import sys, repro_torch, repro_torch.convert, "
-            "repro_torch.kernels._build; "
+            "repro_torch.kernels._build, repro_torch.obs, "
+            "repro_torch.mutation, repro_torch.serving; "
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro', 'triton')); print(bad)")
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env, cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
+@pytest.mark.parametrize("module", ["repro_torch.obs",
+                                    "repro_torch.mutation",
+                                    "repro_torch.serving"])
+def test_subpackage_alone_pulls_in_no_jax_repro_or_triton(module):
+    code = (f"import sys, {module}; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro', 'triton')); print(bad)")
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"))

@@ -1,15 +1,16 @@
 """The port's whole store stack against the JAX package's.
 
 Every composition of `build_store` that tests/test_store_conservation.py
-walks, except the mutable ones (the port has no MutablePageStore yet), is
-built by both packages on the same layout and driven through the same
-workload: replays of a page trace, a cross-query coalesce, page- and
-vertex-granular fetches. Every layer's counters, every accounting dict, the
-hit rates and the per-shard rows must be equal, and the conservation
-identities must hold at every layer of the port's stack. Then the stack is
-fed by a real search: the port's and the reference's `search_batched` on a
-tie-free index give the same `visited_pages` and `page_trace`, and both
-stores account for them alike.
+walks, the mutable ones included, is built by both packages on the same
+layout and driven through the same workload: replays of a page trace, a
+cross-query coalesce, page- and vertex-granular fetches; the mutable ones
+also take page writes, invalidations and growth of the page space. Every
+layer's counters, every accounting dict, the hit rates and the per-shard
+rows must be equal, and the conservation identities must hold at every
+layer of the port's stack. Then the stack is fed by a real search: the
+port's and the reference's `search_batched` on a tie-free index give the
+same `visited_pages` and `page_trace`, and both stores account for them
+alike.
 """
 import numpy as np
 import pytest
@@ -30,6 +31,7 @@ from repro_torch.core.vamana import build_vamana
 from repro_torch.io import (BatchedPageStore, PrefetchingPageStore,
                             ShardedPageStore, SharedCachePageStore,
                             build_store)
+from repro_torch.mutation import MutablePageStore
 
 WRITE_FIELDS = ("data_writes", "journal_writes", "snapshot_writes")
 
@@ -51,7 +53,7 @@ def _mask(layout):
 
 
 # name -> build_store's keywords for a layout: the compositions of
-# tests/test_store_conservation.py without its three mutable ones
+# tests/test_store_conservation.py
 STACKS = {
     "none": lambda lay: {},
     "static-vertex": lambda lay: dict(cached_vertices=_mask(lay),
@@ -71,6 +73,14 @@ STACKS = {
     "sharded-cached": lambda lay: dict(batched=True, shards=3,
                                        cache_policy="lru",
                                        cache_bytes=9 * lay.page_bytes),
+    "mutable": lambda lay: dict(batched=True, mutable=True),
+    "mutable-lru": lambda lay: dict(batched=True, cache_policy="lru",
+                                    cache_bytes=8 * lay.page_bytes,
+                                    mutable=True),
+    "mutable-sharded": lambda lay: dict(batched=True, shards=3,
+                                        cache_policy="lru",
+                                        cache_bytes=9 * lay.page_bytes,
+                                        mutable=True),
 }
 
 
@@ -147,7 +157,12 @@ def _assert_conserved(store, label):
         if inner is not None:
             for f in WRITE_FIELDS + ("pages_written",):
                 assert getattr(c, f) == getattr(inner.counters, f), (at, f)
-        if isinstance(layer, (BatchedPageStore, ShardedPageStore)):
+        if isinstance(layer, MutablePageStore):
+            # the wrapper mirrors every read-path field of its stack
+            for f in ("pages_requested", "pages_fetched", "cache_hits",
+                      "records_fetched"):
+                assert getattr(c, f) == getattr(inner.counters, f), (at, f)
+        elif isinstance(layer, (BatchedPageStore, ShardedPageStore)):
             assert c.pages_requested >= c.cache_hits + c.pages_fetched, at
             assert layer.savings() == c.pages_requested - c.pages_fetched
         elif isinstance(layer, PrefetchingPageStore):
@@ -224,10 +239,50 @@ def test_build_store_refuses_what_the_reference_refuses(layouts, kw):
                                 dict(crash=object())],
                          ids=["mutable", "journal", "crash"])
 def test_build_store_refuses_the_mutable_stack(layouts, kw):
-    """The port has no MutablePageStore yet: the mutable stack raises,
-    naming the slice that brings it, and nothing runs in its place."""
-    with pytest.raises(NotImplementedError, match="A8"):
-        build_store(layouts[1], batched=True, **kw, device="cpu")
+    """The mutable stack is the reference's: `mutable=True` wraps the
+    finished stack in a MutablePageStore, and `journal=`/`crash=` without
+    it are refused with the reference's error."""
+    jl, tl = layouts
+    if kw.get("mutable"):
+        port = build_store(tl, batched=True, **kw, device="cpu")
+        ref = jax_build_store(jl, batched=True, **kw)
+        assert isinstance(port, MutablePageStore)
+        assert [type(s).__name__ for s in _layers(port)] == \
+            [type(s).__name__ for s in _layers(ref)]
+        return
+    with pytest.raises(ValueError) as want:
+        jax_build_store(jl, batched=True, **kw)
+    with pytest.raises(ValueError) as got:
+        build_store(tl, batched=True, **kw, device="cpu")
+    assert str(got.value) == str(want.value)
+
+
+@pytest.mark.parametrize("name", ["mutable", "mutable-lru",
+                                  "mutable-sharded"])
+def test_mutable_stack_writes_and_invalidates_as_the_reference(layouts,
+                                                               name):
+    """The mutation surface: page writes of every kind down the spine,
+    invalidation of rewritten pages across every cache in the stack, and
+    growth of the page space."""
+    jl, tl = layouts
+    seen = []
+    for build, lay in ((jax_build_store, jl), (build_store, tl)):
+        kw = STACKS[name](lay)
+        store = (build(lay, **kw) if build is jax_build_store
+                 else build(lay, **kw, device="cpu"))
+        out = [_drive(store, lay)]
+        store.note_write([0, 3, 3])
+        store.note_write(kind="journal", count=2)
+        store.note_write(kind="snapshot", count=5)
+        out.append(store.invalidate([0, 1, 2, 3]))
+        store.notify_append(lay.num_pages + 4)
+        out.append(store.invalidate([lay.num_pages + 1]))
+        out.append(_drive(store, lay))
+        out.append(store.page_version.tolist())
+        seen.append((out, _observed(store)))
+        if build is build_store:
+            _assert_conserved(store, name)
+    assert seen[1] == seen[0]
 
 
 # -- the stack fed by a real search -----------------------------------------
