@@ -88,6 +88,45 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
                 the 1M graph's reverse adjacency built edge by edge as the
                 reference does beside the port's, whose sets of 10,000
                 sampled vertices must equal it.
+9. fleet    FleetServer (src/repro_torch/serving/fleet.py) over the baseline
+            index with pipeline="fused": 2 replica groups of 4 shards in the
+            replicated placement (hot set ranked by profile_from_trace of
+            the fused [search] run's traces), LRU at IO_CACHE_FRAC of the
+            page bytes, least-work routing, MigrationConfig() and
+            AutoscaleConfig(min_groups=1, max_groups=4); Poisson arrivals at
+            twice [serve] (a)'s modelled QPS for about 1000 arrivals, with
+            the sanitizer armed and a Tracer. The fused_page_rank count is
+            set to 0 just before the window and read just after (it must be
+            above 0). The served ids must equal DiskIndex.search of the same
+            queries, the attribution residual must be at most 1e-3 us and the
+            Chrome trace must validate; the first batch served on each group
+            is run again through fused_page_rank and held to the plain
+            version on the host layout (max abs error at most 1e-4). It
+            prints the report row, the migration volume, the scale events,
+            the served queries/s on the card, the peak device memory, and for
+            each group the seconds of its store build and the device bytes
+            it allocated.
+10. lm      the LM decode server (src/repro_torch/serving/engine.py):
+            (a) repro_torch.launch.serve.main(["--rag"]) as a user runs it
+                (the tinyllama smoke config; an OctopusANN index of 2048
+                deep-like vectors on the card);
+            (b) TinyLlama-1.1B at its full published width
+                (get_config("tinyllama-1.1b"): 22 layers, d_model 2048,
+                32/4 heads, d_ff 5632, vocab 32000), bf16 parameters drawn
+                from torch.Generator(device="cuda") seeded 0, LMServer(
+                max_len=256) on 8 RAG prompts (8 ids retrieved for each of
+                the first 8 queries by the baseline [search] run, modulo the
+                vocabulary, then 8 question tokens), 32 new tokens each: the
+                prefill ms, the decode ms per token, tokens/s, the device's
+                busy share of the decode steps (torch.profiler) and the peak
+                device memory;
+            (c) the same model in float32 (TF32 off): decode after a
+                half-length prefill against the full prefill's logits (the
+                check of tests/test_arch_smoke.py:57) at B = 2, S = 32: within
+                that test's tolerance (rtol = atol = 2e-2), and a max abs
+                logit error of at most 2e-2;
+            (d) the same check for the smoke config of each of the 10
+                ARCH_IDS.
 
 The last lines are the kernels' JSON, the card's name and power limit, and
 {"ok": true, "device": {...}}. It needs one card, and exits non-zero without
@@ -145,6 +184,24 @@ SERVE_POOL = 10_000
 SERVE_COMPACT_THRESHOLD = 1e-4
 # [serve]: vertices whose reverse-adjacency sets are compared at 1M
 REV_SAMPLE = 10_000
+# [fleet]: arrivals in the window
+FLEET_ARRIVALS = 1000
+# [lm]: the RAG prompts of the full-width model, and the decode check's shape
+LM_PROMPTS, LM_RETRIEVED, LM_QUESTION, LM_NEW = 8, 8, 8, 32
+LM_CHECK_B, LM_CHECK_S = 2, 32
+LM_TOL = 2e-2
+# [lm]: the same check with the decode caches in float32, where decode and
+# prefill differ only in their sums' order
+LM_F32_CACHE_TOL = 1e-4
+
+
+# device memory peaks of the run before each phase that resets the counter
+PEAKS = []
+
+
+def _reset_peak(torch) -> None:
+    PEAKS.append(torch.cuda.max_memory_allocated())
+    torch.cuda.reset_peak_memory_stats()
 
 
 def say(phase: str, **kv) -> None:
@@ -220,6 +277,8 @@ def phase_search(rt, torch, ds, indexes):
         summ = st.summary(model, d=ds.d, pq_m=cfg.pq_m,
                           page_bytes=cfg.page_bytes,
                           pipeline=bool(cfg.pipeline))
+        if run == "baseline":
+            out["baseline_ids"] = st.ids
         recall = rt.recall_at_k(st.ids, ds.gt, 10)
         if not (np.isfinite(st.dists).all() and st.ids.shape == (NQ, 10)):
             raise RuntimeError(f"{run}: malformed result")
@@ -847,7 +906,339 @@ def phase_serve(rt, torch, ds, indexes):
         raise RuntimeError("the port's reverse adjacency differs from the "
                            "reference's edge-by-edge sets")
     say("serve", phase_s=round(time.perf_counter() - t_phase, 3))
-    return launches["fused_page_rank"]
+    return {"launches": launches["fused_page_rank"], "closed_qps": rep.qps}
+
+
+def phase_fleet(rt, torch, ds, indexes, search_out, closed_qps):
+    """FleetServer on the card: replica groups over the baseline index,
+    with migration and autoscaling, on the fused served path."""
+    from repro_torch import kernels as ops
+    from repro_torch import sanitize
+    from repro_torch.core import search_kernel
+    from repro_torch.io import profile_from_trace
+    from repro_torch.obs import (CONSERVATION_TOL_US, Tracer,
+                                 validate_chrome_trace)
+    from repro_torch.serving import (AutoscaleConfig, FleetConfig,
+                                     FleetServer, MigrationConfig,
+                                     ServerConfig)
+    t_phase = time.perf_counter()
+    idx = indexes["baseline"]
+    lay = idx.layout
+    cfg = rt.get_preset("pipeline", pipeline="fused")
+    profile = profile_from_trace(search_out["trace"], lay.num_pages)
+    scfg = ServerConfig(
+        shards=4, placement="replicated", cache_policy="lru",
+        cache_bytes=int(IO_CACHE_FRAC * lay.num_pages * lay.page_bytes))
+    fcfg = FleetConfig(replica_groups=2, routing="least-work",
+                       migration=MigrationConfig(),
+                       autoscale=AutoscaleConfig(min_groups=1, max_groups=4))
+    builds = []
+
+    class TimedFleet(FleetServer):
+        """Times each group's store build and the device bytes it
+        allocates."""
+
+        def _activate_group(self, now_us):
+            torch.cuda.synchronize()
+            m0 = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            r = super()._activate_group(now_us)
+            torch.cuda.synchronize()
+            builds.append({"group": r.rid, "at_us": round(now_us, 1),
+                           "build_s": round(time.perf_counter() - t0, 4),
+                           "device_bytes": torch.cuda.memory_allocated()
+                           - m0})
+            return r
+
+    torch.cuda.synchronize()
+    _reset_peak(torch)
+    base_bytes = torch.cuda.memory_allocated()
+    srv = TimedFleet(idx, cfg, server_cfg=scfg, fleet_cfg=fcfg,
+                     page_profile=profile)
+    # the first batch served on each group is kept for a check against
+    # the plain version after the window
+    routed = {"rid": None}
+    firsts = {}
+    real_route = srv._route
+    real_measure = search_kernel.measure_step_us
+
+    def route(routable):
+        r = real_route(routable)
+        routed["rid"] = r.rid
+        return r
+
+    def measure_and_keep(store, pq, queries, page_trace, **kw):
+        out = real_measure(store, pq, queries, page_trace, **kw)
+        if routed["rid"] not in firsts:
+            firsts[routed["rid"]] = _served_batch(store, pq, queries,
+                                                  page_trace)
+        return out
+
+    srv._route = route
+    search_kernel.measure_step_us = measure_and_keep
+    rate = 2.0 * closed_qps
+    tracer = Tracer()
+    prev = sanitize.set_enabled(True)
+    try:
+        ops.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rep = srv.serve_fleet(ds.queries, rate_qps=rate,
+                              duration_us=FLEET_ARRIVALS / rate * 1e6,
+                              seed=0, tracer=tracer)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = ops.launches["fused_page_rank"]
+    finally:
+        sanitize.set_enabled(prev)
+        search_kernel.measure_step_us = real_measure
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    above_gib = peak_gib - base_bytes / 2**30
+    # which stores hold device copies of the layout: the server's kernel
+    # store (every group's batches search it) and any group store
+    def bottom(store):
+        while hasattr(store, "inner"):
+            store = store.inner
+        return store
+
+    def device_bytes(store):
+        b = bottom(store)
+        arrays = list(b._kernel_cache or ())
+        codes = store.__dict__.get("_device_page_codes")
+        return sum(a.numel() * a.element_size()
+                   for a in arrays + ([codes] if codes is not None else []))
+    kernel_store_bytes = device_bytes(srv.store)
+    group_uploads = [r.rid for r in srv.replicas
+                     if bottom(r.store)._kernel_cache is not None]
+    checked = [b for b in firsts.values() if b is not None]
+    if len(checked) < len([r for r in srv.replicas if r.batches]):
+        raise RuntimeError("[fleet] kept no first batch for some group")
+    served_err = max(_check_served_batch(torch, idx.pq, b) for b in checked)
+
+    want = idx.search(ds.queries[rep.query_indices], cfg,
+                      batch=scfg.max_batch)
+    same = int(np.all(rep.stats.ids == want.ids, axis=1).sum())
+    at = rep.attribution
+    resid = float(np.abs(at["queue_us"] + at["service_us"]
+                         + at["interference_us"] - at["latency_us"]).max())
+    doc = tracer.to_chrome()
+    problems = validate_chrome_trace(doc)
+    events = [e for e in (rep.timeline or []) if e[3]]
+    say("fleet", rate_qps=round(rate, 1), offered=rep.offered,
+        completed=rep.completed, shed=rep.shed,
+        ids_equal_facade=f"{same}/{rep.completed}",
+        attribution_max_residual_us=resid,
+        fused_page_rank_launches=launches,
+        served_batches_checked=len(checked),
+        served_fused_max_abs_err=served_err,
+        trace_events=len(doc["traceEvents"]), trace_problems=len(problems),
+        migrations=rep.migrations, promoted_pages=rep.promoted_pages,
+        demoted_pages=rep.demoted_pages,
+        mig_pages_read=rep.mig_pages_read,
+        mig_pages_written=rep.mig_pages_written,
+        mig_io_us=round(rep.mig_io_us, 1),
+        scale_events=json.dumps(events).replace(" ", ""),
+        groups_final=rep.groups_final,
+        per_replica=json.dumps(rep.per_replica).replace(" ", ""))
+    say("fleet", group_builds=json.dumps(builds).replace(" ", ""),
+        group_stores_uploaded=json.dumps(group_uploads),
+        kernel_store_device_gib=round(kernel_store_bytes / 2**30, 3),
+        peak_device_gib=round(peak_gib, 3),
+        peak_device_gib_above_earlier_phases=round(above_gib, 3),
+        served_qps_on_card=round(rep.completed / wall, 1),
+        serve_s=round(wall, 3), modelled_row=_row(rep))
+    if same != rep.completed or not np.isfinite(rep.stats.dists).all():
+        raise RuntimeError("[fleet]: the fleet's results are not the "
+                           "facade's")
+    if resid > CONSERVATION_TOL_US:
+        raise RuntimeError(f"[fleet]: attribution residual {resid} us")
+    if problems:
+        raise RuntimeError(f"[fleet]: the Chrome trace does not validate: "
+                           f"{problems[:5]}")
+    if launches == 0:
+        raise RuntimeError("[fleet] launched no fused_page_rank kernel")
+    if served_err > 1e-4:
+        raise RuntimeError(f"[fleet]: a served batch's fused_page_rank is "
+                           f"{served_err} from the plain version")
+    say("fleet", phase_s=round(time.perf_counter() - t_phase, 3))
+    return launches
+
+
+def _decode_vs_prefill(torch, params, cfg):
+    """Decode of the second half of LM_CHECK_B x LM_CHECK_S seeded tokens
+    after a half-length prefill against the full prefill's next-token
+    logits (tests/test_arch_smoke.py:57), on the parameters' device, once
+    in the reference's bfloat16 caches (held at LM_TOL) and once in float32
+    caches (held at LM_F32_CACHE_TOL). For each: (max abs difference, the
+    largest excess over allclose's tolerance, |a - b| - tol * (1 + |b|),
+    which must not be positive)."""
+    from repro_torch.serving.engine import decode_vs_prefill
+    rng = np.random.default_rng(0)
+    toks = rng.integers(1, cfg.vocab_size, (LM_CHECK_B, LM_CHECK_S))
+    frames = (rng.normal(0, 0.1, (LM_CHECK_B, cfg.num_frames, cfg.d_model))
+              .astype(np.float32) if cfg.frontend == "audio_stub" else None)
+    out = {}
+    for name, dtype, tol in (("bf16", torch.bfloat16, LM_TOL),
+                             ("f32", torch.float32, LM_F32_CACHE_TOL)):
+        lg, full = decode_vs_prefill(params, cfg, toks, frames,
+                                     cache_dtype=dtype)
+        if lg.shape != full.shape or not torch.isfinite(lg).all():
+            raise RuntimeError(f"{cfg.name}: malformed logits "
+                               f"{tuple(lg.shape)}")
+        diff = (lg.float() - full.float()).abs()
+        excess = diff - tol * (1.0 + full.float().abs())
+        out[name] = (float(diff.max()), float(excess.max()))
+    return out
+
+
+def _decode_vs_prefill_failures(errs):
+    """The checks of `_decode_vs_prefill` results that fail."""
+    tols = {"bf16": LM_TOL, "f32": LM_F32_CACHE_TOL}
+    return {(k, c): e for k, r in errs.items() for c, e in r.items()
+            if not (e[1] <= 0 and e[0] <= tols[c])}
+
+
+def _device_busy_ms(torch, fn):
+    """The device time of the kernels `fn` launches, from torch.profiler.
+    Raises where the profiler records no device time."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    busy_us = sum(getattr(e, "self_device_time_total", 0.0)
+                  for e in prof.key_averages())
+    if not busy_us > 0:
+        raise RuntimeError("torch.profiler recorded no device time")
+    return busy_us / 1e3
+
+
+def phase_lm(rt, torch, ds, search_out):
+    """The LM decode server on the card: the RAG launcher, TinyLlama-1.1B
+    at full width, and decode-vs-prefill checks."""
+    from repro_torch.configs import ARCH_IDS, get_config, get_smoke_config
+    from repro_torch.launch import serve
+    from repro_torch.models import (decode_step, init_cache, init_params,
+                                    prefill_step)
+    from repro_torch.serving.engine import LMServer, _fit
+    t_phase = time.perf_counter()
+
+    # (a) the launcher, as a user runs it
+    t0 = time.perf_counter()
+    served = serve.main(["--rag"])
+    torch.cuda.synchronize()
+    say("lm", part="launch-serve-rag", requests_served=served,
+        seconds=round(time.perf_counter() - t0, 3))
+    if served != 12:
+        raise RuntimeError(f"launch.serve served {served} of 12 requests")
+
+    # (b) TinyLlama-1.1B at full width, bf16, on RAG prompts
+    cfg = get_config("tinyllama-1.1b")
+    torch.cuda.synchronize()
+    _reset_peak(torch)
+    base_bytes = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in params.parameters())
+    ctx = (search_out["baseline_ids"][:LM_PROMPTS, :LM_RETRIEVED]
+           % cfg.vocab_size).astype(np.int32)
+    question = np.random.default_rng(0).integers(
+        1, cfg.vocab_size, (LM_PROMPTS, LM_QUESTION)).astype(np.int32)
+    prompts = np.concatenate([ctx, question], axis=1)
+    server = LMServer(params, cfg, max_len=256)
+    server.generate(prompts, new_tokens=2)               # warm-up
+    batch = {"tokens": torch.as_tensor(prompts, device="cuda").long()}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, _ = prefill_step(params, cfg, batch)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    out = server.generate(prompts, new_tokens=LM_NEW)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    decode_ms = (gen_s * 1e3 - prefill_ms) / LM_NEW
+    first = torch.argmax(logits, -1).cpu().numpy()
+    # four decode steps under the profiler: device busy time against the
+    # steps' wall time
+    with torch.inference_mode():
+        _, cache = prefill_step(params, cfg, batch)
+        cache = [_fit(d, c) for d, c in zip(
+            init_cache(cfg, LM_PROMPTS, 256, device="cuda"), cache)]
+        tok = batch["tokens"][:, -1:]
+        state = {"cache": cache}
+
+        def steps():
+            for i in range(4):
+                _, state["cache"] = decode_step(
+                    params, cfg, tok, state["cache"], prompts.shape[1] + i)
+        steps()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        steps()
+        torch.cuda.synchronize()
+        steps_ms = (time.perf_counter() - t0) * 1e3
+        busy_ms = _device_busy_ms(torch, steps)
+    peak_gib = (torch.cuda.max_memory_allocated() - base_bytes) / 2**30
+    weight_bytes = sum(p.numel() * p.element_size()
+                       for p in params.parameters())
+    say("lm", part="tinyllama-1.1b-bf16", layers=cfg.num_layers,
+        d_model=cfg.d_model, heads=f"{cfg.num_heads}/{cfg.num_kv_heads}",
+        d_ff=cfg.d_ff, vocab=cfg.vocab_size, params=n_params,
+        weight_gb=round(weight_bytes / 1e9, 3), init_s=round(init_s, 3),
+        prompts=json.dumps(list(prompts.shape)), new_tokens=LM_NEW,
+        prefill_ms=round(prefill_ms, 3),
+        decode_ms_per_token=round(decode_ms, 3),
+        tokens_per_s=round(LM_PROMPTS * LM_NEW / gen_s, 1),
+        generate_s=round(gen_s, 3),
+        decode_4_steps_ms=round(steps_ms, 3),
+        decode_4_steps_device_busy_ms=round(busy_ms, 3),
+        device_busy_share=round(busy_ms / steps_ms, 4),
+        peak_device_gib_above_earlier_phases=round(peak_gib, 3),
+        first_tokens=json.dumps(out[:2, :8].tolist()).replace(" ", ""))
+    if out.shape != (LM_PROMPTS, LM_NEW) or not (
+            (out >= 0) & (out < cfg.padded_vocab)).all():
+        raise RuntimeError(f"TinyLlama generated {out.shape} tokens out of "
+                           f"range")
+    if not (out[:, 0] == first).all():
+        raise RuntimeError("the first generated token is not the prefill's "
+                           "argmax")
+    del server, params, logits, cache, state
+    torch.cuda.empty_cache()
+
+    # (c) the same model in float32: decode against prefill
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         dtype=torch.float32)
+    errs = _decode_vs_prefill(torch, params, cfg)
+    for c, tol in (("bf16", LM_TOL), ("f32", LM_F32_CACHE_TOL)):
+        say("lm", part="tinyllama-1.1b-f32-decode-vs-prefill", cache=c,
+            B=LM_CHECK_B, S=LM_CHECK_S, max_abs_logit_err=errs[c][0],
+            rtol=tol, atol=tol, max_excess_over_tol=errs[c][1])
+    if _decode_vs_prefill_failures({cfg.name: errs}):
+        raise RuntimeError(f"TinyLlama f32 decode differs from prefill: "
+                           f"{errs}")
+    del params
+    torch.cuda.empty_cache()
+
+    # (d) the same check for every smoke config
+    errs = {}
+    for arch in ARCH_IDS:
+        scfg = get_smoke_config(arch)
+        p = init_params(scfg, torch.Generator(device="cuda").manual_seed(0),
+                        dtype=torch.float32)
+        errs[arch] = _decode_vs_prefill(torch, p, scfg)
+    for c, tol in (("bf16", LM_TOL), ("f32", LM_F32_CACHE_TOL)):
+        say("lm", part="smoke-configs-decode-vs-prefill", cache=c,
+            max_abs_logit_err=json.dumps({a: e[c][0] for a, e in
+                                          errs.items()}).replace(" ", ""),
+            rtol=tol, atol=tol,
+            max_excess_over_tol=max(e[c][1] for e in errs.values()))
+    bad = _decode_vs_prefill_failures(errs)
+    if bad:
+        raise RuntimeError(f"decode differs from prefill: {bad}")
+    say("lm", phase_s=round(time.perf_counter() - t_phase, 3))
 
 
 def main() -> int:
@@ -897,12 +1288,17 @@ def main() -> int:
     rows.append(phase_pq_adc(rt, torch, ds, indexes))
     say("pq_adc", phase_s=round(time.perf_counter() - t0, 3))
     phase_io(rt, torch, ds, indexes)
-    serve_launches = phase_serve(rt, torch, ds, indexes)
+    serve_out = phase_serve(rt, torch, ds, indexes)
+    fleet_launches = phase_fleet(rt, torch, ds, indexes, search_out,
+                                 serve_out["closed_qps"])
+    phase_lm(rt, torch, ds, search_out)
     for row in rows:
         if row["name"] == "fused_page_rank":
-            row["serve_launches"] = serve_launches
+            row["serve_launches"] = serve_out["launches"]
+            row["fleet_launches"] = fleet_launches
     say("done", phases_s=round(time.perf_counter() - t_all, 3),
-        peak_device_gib=round(torch.cuda.max_memory_allocated() / 2**30, 3),
+        peak_device_gib=round(max(PEAKS + [torch.cuda.max_memory_allocated()])
+                              / 2**30, 3),
         peak_host_gib=round(resource.getrusage(resource.RUSAGE_SELF)
                             .ru_maxrss / 2**20, 3))
     print("kernels: " + ", ".join(f"{r['name']} ok" for r in rows))

@@ -12,18 +12,26 @@ restored from the reference's mutable state as `mutable_state` reads it
 (snapshot()'s format, without billing a snapshot), so that both packages
 hold the same layout, graph, codes, tombstones, delta, page sets and
 counters.
+
+`params_from_reference(params, cfg, device)` reads a `repro` model's
+parameter tree (nested dicts of arrays, stacked over stages, as
+`repro.models.init_params` returns it) and returns the port's
+`Transformer` with the same values, one parameter tree per layer.
 """
 from __future__ import annotations
 
 import dataclasses
 
 import numpy as np
+import torch
 
 from repro_torch._device import resolve_device
 from repro_torch.core.engine import DiskIndex, SearchConfig
 from repro_torch.core.memgraph import MemGraph
 from repro_torch.core.pages import PageLayout
 from repro_torch.core.pq import PQ
+from repro_torch.models.transformer import (Transformer, num_blocks,
+                                            stage_len)
 from repro_torch.mutation.mutable_index import (MutableIndex, MutationConfig,
                                                 mutable_state)
 
@@ -73,3 +81,44 @@ def mutable_from_reference(ref_mutable, device=None) -> MutableIndex:
     idx = MutableIndex(index_from_reference(ref_mutable.base, device), mcfg)
     idx.restore(mutable_state(ref_mutable))
     return idx
+
+
+def _leaf(a, device) -> torch.Tensor:
+    """One array of a reference tree as a tensor of its dtype; bfloat16
+    (which numpy lacks) goes through float32, exactly."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.as_tensor(a.astype(np.float32),
+                               device=device).to(torch.bfloat16)
+    return torch.as_tensor(np.array(a, copy=True), device=device)
+
+
+def _tree(tree, fn):
+    if isinstance(tree, dict):
+        return {k: _tree(v, fn) for k, v in tree.items()}
+    return fn(tree)
+
+
+def params_from_reference(params, cfg, device=None) -> Transformer:
+    """The port's Transformer holding `params`, a reference parameter tree
+    for `cfg`: stage s, position j of the stacked "stages" becomes block
+    s * stage_len + j, and each stacked encoder layer an encoder block."""
+    device = resolve_device(device)
+    sl = stage_len(cfg)
+
+    def leaf(a):
+        return _leaf(a, device)
+
+    blocks = [_tree(params["stages"][f"pos{i % sl}"],
+                    lambda a, s=i // sl: _leaf(np.asarray(a)[s], device))
+              for i in range(num_blocks(cfg))]
+    tree = {"embed": _tree(params["embed"], leaf), "blocks": blocks,
+            "final_norm": _tree(params["final_norm"], leaf),
+            "lm_head": leaf(params["lm_head"])}
+    if "encoder" in params:
+        tree["encoder"] = [
+            _tree(params["encoder"], lambda a, e=e: _leaf(np.asarray(a)[e],
+                                                          device))
+            for e in range(cfg.encoder_layers)]
+        tree["enc_norm"] = _tree(params["enc_norm"], leaf)
+    return Transformer(cfg, tree)

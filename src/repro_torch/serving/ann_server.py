@@ -66,9 +66,8 @@ budget is split into per-shard caches; shards compose with `tenants` (each
 shard's slice is tenant-partitioned) and with `prefetch` (look-ahead issued
 against the owning shard's queue), so one ServerConfig can describe a full
 production store. Replica groups — N complete copies of the shard set with
-load-aware routing, hot-page migration and autoscaling — live one layer up
-in the reference (src/repro/serving/fleet.py), which the port does not
-have yet.
+load-aware routing, hot-page migration and autoscaling — live one layer up,
+in repro_torch/serving/fleet.py (FleetServer extends this class).
 
 Multi-tenancy: `ServerConfig.tenants > 1` splits the SAME `cache_bytes`
 budget into per-tenant partitions (repro_torch/io/page_cache.py:

@@ -316,3 +316,92 @@ def test_fused_server_on_the_card_equals_the_cpu(card):
     np.testing.assert_array_equal(g_o.stats.ids, c_o.stats.ids)
     np.testing.assert_array_equal(g_o.stats.dists, c_o.stats.dists)
     assert c_l["fused_page_rank"] == 0 and g_l["fused_page_rank"] > 0
+
+
+def test_fleet_on_the_card_equals_the_facade(card):
+    """A pipeline="fused" FleetServer (two groups of two replicated
+    shards, migration and autoscaling on): the ids equal the facade's on
+    the card, the rows equal the CPU port's, and the window launched
+    fused_page_rank."""
+    from repro_torch import get_preset
+    from repro_torch.io import profile_from_trace
+    from repro_torch.serving import (AutoscaleConfig, FleetConfig,
+                                     FleetServer, MigrationConfig,
+                                     ServerConfig)
+    ds, cpu_idx, gpu_idx = _integer_index(card)
+    cfg = get_preset("pipeline", L=32, pipeline="fused")
+    st = cpu_idx.search(ds.queries, cfg)      # a fused search keeps traces
+    profile = profile_from_trace(st.page_trace, cpu_idx.layout.num_pages)
+    out = {}
+    for name, base in (("cpu", cpu_idx), ("card", gpu_idx)):
+        ops.reset_launches()
+        srv = FleetServer(
+            base, cfg, server_cfg=ServerConfig(
+                max_batch=8, shards=2, placement="replicated",
+                cache_policy="lru", cache_bytes=8 * base.layout.page_bytes),
+            fleet_cfg=FleetConfig(
+                replica_groups=2, migration=MigrationConfig(every_us=400.0),
+                autoscale=AutoscaleConfig(check_every_us=500.0,
+                                          max_groups=4)),
+            page_profile=profile)
+        rep = srv.serve_fleet(ds.queries, rate_qps=50_000.0,
+                              duration_us=4_000.0, seed=4)
+        torch.cuda.synchronize()
+        out[name] = (rep, dict(ops.launches))
+    (c_rep, c_l), (g_rep, g_l) = out["cpu"], out["card"]
+    want = gpu_idx.search(ds.queries, cfg)
+    np.testing.assert_array_equal(g_rep.stats.ids,
+                                  want.ids[g_rep.query_indices])
+    assert _rows([g_rep]) == _rows([c_rep])
+    assert g_rep.per_replica == c_rep.per_replica
+    assert c_l["fused_page_rank"] == 0 and g_l["fused_page_rank"] > 0
+
+
+@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "qwen2-moe-a2.7b",
+                                  "rwkv6-3b", "jamba-v0.1-52b",
+                                  "whisper-small", "qwen2-vl-2b"])
+def test_lm_decode_matches_prefill_on_the_card(card, arch):
+    """One smoke config of each family (dense, moe, ssm, hybrid, audio,
+    vlm), float32 with TF32 off: decode after a half prefill gives the full
+    prefill's logits on the card (the reference's 2e-2 in bfloat16 caches,
+    1e-4 in float32 caches), and the card's full prefill is the CPU's."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import init_params
+    from repro_torch.serving.engine import decode_vs_prefill
+    cfg = get_smoke_config(arch)
+    rng = np.random.default_rng(0)
+    toks = rng.integers(1, cfg.vocab_size, (2, 32))
+    frames = (rng.normal(0, 0.1, (2, cfg.num_frames, cfg.d_model)).astype(
+        np.float32) if cfg.frontend == "audio_stub" else None)
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        params = init_params(cfg, torch.Generator().manual_seed(0),
+                             dtype=torch.float32, device="cpu")
+        _, full_cpu = decode_vs_prefill(params, cfg, toks, frames)
+        params = params.to(card)
+        lg, full = decode_vs_prefill(params, cfg, toks, frames)
+        lg32, full32 = decode_vs_prefill(params, cfg, toks, frames,
+                                         cache_dtype=torch.float32)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    assert lg.device.type == "cuda" and torch.isfinite(lg).all()
+    np.testing.assert_allclose(lg.cpu().numpy(), full.cpu().numpy(),
+                               rtol=2e-2, atol=2e-2)
+    np.testing.assert_allclose(lg32.cpu().numpy(), full32.cpu().numpy(),
+                               rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(full.cpu().numpy(), full_cpu.numpy(),
+                               rtol=1e-4, atol=1e-4)
+
+
+def test_init_params_draws_on_the_card(card):
+    """`init_params` puts the model on the card by default, drawn there
+    from a card generator, and refuses a generator on another device."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import init_params
+    cfg = get_smoke_config("tinyllama-1.1b")
+    params = init_params(cfg, torch.Generator(device=card).manual_seed(0))
+    assert params.device.type == "cuda"
+    assert all(p.device.type == "cuda" for p in params.parameters())
+    with pytest.raises(ValueError, match="generator is on cpu"):
+        init_params(cfg, torch.Generator().manual_seed(0))

@@ -17,7 +17,10 @@ PORT = REPO / "src" / "repro_torch"
 def test_import_pulls_in_no_jax_repro_or_triton():
     code = ("import sys, repro_torch, repro_torch.convert, "
             "repro_torch.kernels._build, repro_torch.obs, "
-            "repro_torch.mutation, repro_torch.serving; "
+            "repro_torch.mutation, repro_torch.serving, "
+            "repro_torch.serving.fleet, repro_torch.serving.engine, "
+            "repro_torch.configs, repro_torch.models, "
+            "repro_torch.launch.serve; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro', 'triton')); print(bad)")
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
@@ -29,7 +32,13 @@ def test_import_pulls_in_no_jax_repro_or_triton():
 
 @pytest.mark.parametrize("module", ["repro_torch.obs",
                                     "repro_torch.mutation",
-                                    "repro_torch.serving"])
+                                    "repro_torch.serving",
+                                    "repro_torch.serving.fleet",
+                                    "repro_torch.serving.engine",
+                                    "repro_torch.configs",
+                                    "repro_torch.models",
+                                    "repro_torch.launch",
+                                    "repro_torch.launch.serve"])
 def test_subpackage_alone_pulls_in_no_jax_repro_or_triton(module):
     code = (f"import sys, {module}; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
@@ -70,3 +79,28 @@ def test_entry_points_need_the_card_unless_told():
     assert isinstance(ds, Dataset) and ds.gt.shape == (4, 10)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         build_index(ds, SearchConfig(), R=4, L_build=8)
+
+
+def test_lm_entry_points_need_the_card_unless_told():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.convert import params_from_reference
+    from repro_torch.launch import serve
+    from repro_torch.models import init_cache, init_params
+    cfg = get_smoke_config("tinyllama-1.1b")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init_cache(cfg, 1, 4)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.main(["--requests", "1"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        params_from_reference({}, cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init_params(cfg, torch.Generator().manual_seed(0))
+    with pytest.raises(ValueError, match="generator is on cpu"):
+        init_params(cfg, torch.Generator().manual_seed(0), device="meta")
+    params = init_params(cfg, torch.Generator().manual_seed(0),
+                         device="cpu")
+    assert params.device.type == "cpu"
+    assert params.lm_head.dtype == torch.bfloat16      # param_dtype
+    assert len(init_cache(cfg, 1, 4, device="cpu")) == cfg.num_layers
