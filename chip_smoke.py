@@ -127,6 +127,32 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
                 logit error of at most 2e-2;
             (d) the same check for the smoke config of each of the 10
                 ARCH_IDS.
+11. train   training on the card (src/repro_torch/launch/train.py), with
+            [lm]'s models freed first:
+            (a) launch.train.main(TRAIN_ARGS) as a user runs it:
+                TinyLlama-1.1B at full width in float32 (TF32 off), 20
+                steps of 8 x 128 tokens from the launcher's seeded
+                parameters and pipeline: ms per step (median of steps
+                2-19, each ending in a read of the loss) against the bound
+                6 x (parameters outside the embedding) x tokens at the
+                H100's f32 peak, tokens/s, the device's busy share of 3
+                more steps (torch.profiler), the peak device memory, and
+                the first and last loss; the last must be below the first;
+            (b) the die-and-resume drill, each half a process of its own
+                (python -m repro_torch.launch.train): checkpoints every 10
+                steps into a temporary directory under build/, a run that
+                dies at step 15 (exit 42), and a --resume run that restarts
+                at step 10 and must end within rtol 1e-4 of (a)'s last
+                loss; it prints the free disk, each save's and restore's
+                seconds, the checkpoint's size, and whether the resumed
+                losses are (a)'s bit for bit; the directory is deleted;
+            (c) launch.train.first_step of the tinyllama smoke config (the
+                launcher's first step from seeded parameters and batch) on
+                the card and on the CPU, plain, accum=2 and compress=True:
+                the parameters within rtol 1e-4, atol 1e-5; with
+                compression an element whose int8 code rounds the other
+                way on the card may move by the lr more, and at most 1e-3
+                of the codes may (launch.train.step_difference).
 
 The last lines are the kernels' JSON, the card's name and power limit, and
 {"ok": true, "device": {...}}. It needs one card, and exits non-zero without
@@ -136,6 +162,8 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
+import re
 import resource
 import subprocess
 import sys
@@ -193,6 +221,24 @@ LM_TOL = 2e-2
 # [lm]: the same check with the decode caches in float32, where decode and
 # prefill differ only in their sums' order
 LM_F32_CACHE_TOL = 1e-4
+
+
+# [train]: TinyLlama-1.1B trained at full width with the launcher's default
+# batch and sequence; the die-and-resume drill's checkpoint interval and
+# failure step; the resumed run's tolerance (the reference's,
+# tests/test_training_checkpoint.py:83) and the card-against-CPU step's
+TRAIN_BATCH, TRAIN_SEQ = 8, 128
+TRAIN_ARGS = ["--arch", "tinyllama-1.1b", "--steps", "20", "--batch",
+              str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ)]
+TRAIN_CKPT_EVERY, TRAIN_DIE_AT = 10, 15
+TRAIN_RESUME_RTOL = 1e-4
+TRAIN_CPU_RTOL, TRAIN_CPU_ATOL = 1e-4, 1e-5
+# ... with int8 compression, the share of codes that may round the other
+# way on the card (gradients on a rounding boundary; a broken quantizer
+# would flip about half)
+TRAIN_MAX_FLIP_SHARE = 1e-3
+# [train]: steps under the profiler for the device's busy share
+TRAIN_PROFILED_STEPS = 3
 
 
 # device memory peaks of the run before each phase that resets the counter
@@ -1098,19 +1144,27 @@ def _decode_vs_prefill_failures(errs):
             if not (e[1] <= 0 and e[0] <= tols[c])}
 
 
-def _device_busy_ms(torch, fn):
-    """The device time of the kernels `fn` launches, from torch.profiler.
-    Raises where the profiler records no device time."""
+def _kernel_ms(torch, fn) -> dict:
+    """The device time of each kernel `fn` launches, by name, in ms, from
+    torch.profiler: the rows of the device's own events (a CPU operator's
+    row repeats its kernels' time, so it is not added). Raises where the
+    profiler records no device time."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    busy_us = sum(getattr(e, "self_device_time_total", 0.0)
-                  for e in prof.key_averages())
-    if not busy_us > 0:
+    rows = {e.key: e.self_device_time_total / 1e3
+            for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
+    if not sum(rows.values()) > 0:
         raise RuntimeError("torch.profiler recorded no device time")
-    return busy_us / 1e3
+    return rows
+
+
+def _device_busy_ms(torch, fn):
+    """The device time of the kernels `fn` launches (_kernel_ms)."""
+    return sum(_kernel_ms(torch, fn).values())
 
 
 def phase_lm(rt, torch, ds, search_out):
@@ -1241,6 +1295,172 @@ def phase_lm(rt, torch, ds, search_out):
     say("lm", phase_s=round(time.perf_counter() - t_phase, 3))
 
 
+def _train_cpu_pair(compress: bool, accum: int) -> dict:
+    """launch.train.first_step of the tinyllama smoke config on the card
+    against the CPU (launch.train.step_difference)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.train import first_step, step_difference
+    cfg = get_smoke_config("tinyllama-1.1b")
+    return step_difference(first_step(cfg, "cuda", compress, accum),
+                           first_step(cfg, "cpu", compress, accum),
+                           TRAIN_CPU_RTOL, TRAIN_CPU_ATOL)
+
+
+def _run_train(args, tag: str):
+    """`python -m repro_torch.launch.train args` in a process of its own:
+    (return code, seconds, its output's [ckpt] and [resume] seconds)."""
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "repro_torch.launch.train",
+                        *args], cwd=ROOT, capture_output=True, text=True,
+                       timeout=600, env={**os.environ,
+                                         "PYTHONPATH": str(ROOT / "src")})
+    secs = time.perf_counter() - t0
+    saves = [float(x) for x in re.findall(r"\[ckpt\] saved step \d+ in "
+                                          r"([0-9.]+)s", r.stdout)]
+    restores = [float(x) for x in re.findall(r"\[resume\] restored step "
+                                             r"\d+ .* in ([0-9.]+)s",
+                                             r.stdout)]
+    if r.returncode not in (0, 42):
+        raise RuntimeError(f"[train] {tag} exited {r.returncode}:\n"
+                           f"{r.stdout[-2000:]}\n{r.stderr[-4000:]}")
+    return r.returncode, secs, saves, restores
+
+
+def phase_train(torch):
+    """Training on the card: TinyLlama-1.1B at full width through the
+    launcher, the die-and-resume drill in processes of its own, and one
+    step of the smoke config on the card against the CPU."""
+    import os
+    import shutil
+    import statistics
+    import tempfile
+    from repro_torch.configs import get_config
+    from repro_torch.core.device_model import H100_SXM
+    from repro_torch.launch import train
+    from repro_torch.models import abstract_params, init_params
+    from repro_torch.training import compression, optim
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()              # [lm]'s models are gone by now
+    cfg = get_config("tinyllama-1.1b")
+    n_params = sum(p.numel() for p in abstract_params(cfg).parameters())
+    n_dense = n_params - cfg.padded_vocab * cfg.d_model   # outside the table
+    batch, seq = TRAIN_BATCH, TRAIN_SEQ
+    tokens = batch * seq
+    bound_s = 6 * n_dense * tokens / H100_SXM.peak_flops_f32
+    (ROOT / "build").mkdir(exist_ok=True)
+    work = Path(tempfile.mkdtemp(prefix="train-", dir=ROOT / "build"))
+    try:
+        # (a) the launcher, as a user runs it
+        torch.cuda.synchronize()
+        _reset_peak(torch)
+        base_bytes = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        losses = train.main(TRAIN_ARGS + ["--log-every", "5",
+                                          "--metrics-out",
+                                          str(work / "a.json")])
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        peak_gib = (torch.cuda.max_memory_allocated() - base_bytes) / 2**30
+        step_s = json.load(open(work / "a.json"))["step_s"]
+        step_ms = statistics.median(step_s[2:]) * 1e3
+        if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+            raise RuntimeError(f"[train] the loss did not fall: {losses}")
+
+        # the device's busy share of TRAIN_PROFILED_STEPS steps
+        opt = optim.for_model(cfg, lr=1e-3, warmup_steps=10,
+                              total_steps=20)
+        params = init_params(cfg, torch.Generator(device="cuda")
+                             .manual_seed(0), dtype=torch.float32)
+        state = {"opt": optim.init_state(params, opt),
+                 "err": compression.init_error_state(params)}
+        step_fn = train.make_train_step(cfg, opt)
+        toks = torch.randint(1, cfg.vocab_size, (batch, seq),
+                             device="cuda", generator=torch.Generator(
+                                 device="cuda").manual_seed(1))
+
+        def steps():
+            for _ in range(TRAIN_PROFILED_STEPS):
+                _, state["opt"], state["err"], _ = step_fn(
+                    params, state["opt"], state["err"], {"tokens": toks})
+        steps()                                           # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        steps()
+        torch.cuda.synchronize()
+        steps_ms = (time.perf_counter() - t0) * 1e3
+        kernels = _kernel_ms(torch, steps)
+        busy_ms = sum(kernels.values())
+        gemm_ms = sum(v for k, v in kernels.items()
+                      if "gemm" in k.lower() or "cutlass" in k.lower())
+        top = sorted(kernels.items(), key=lambda kv: -kv[1])[:5]
+        del params, state, step_fn
+        torch.cuda.empty_cache()
+        say("train", part="tinyllama-1.1b-f32", layers=cfg.num_layers,
+            d_model=cfg.d_model, heads=f"{cfg.num_heads}/{cfg.num_kv_heads}",
+            d_ff=cfg.d_ff, vocab=cfg.vocab_size, params=n_params,
+            params_outside_embedding=n_dense, batch=batch, seq=seq,
+            steps=len(losses), run_s=round(run_s, 3),
+            ms_per_step_median_2_19=round(step_ms, 3),
+            tokens_per_s=round(tokens / step_ms * 1e3, 1),
+            bound_ms_6NT_f32=round(bound_s * 1e3, 3),
+            ms_over_bound=round(step_ms / (bound_s * 1e3), 3),
+            profiled_steps_ms=round(steps_ms, 3),
+            profiled_steps_device_busy_ms=round(busy_ms, 3),
+            device_busy_share=round(busy_ms / steps_ms, 4),
+            gemm_share_of_busy=round(gemm_ms / busy_ms, 4),
+            top_kernels_ms=json.dumps({k[:60]: round(v, 3) for k, v in top}
+                                      ).replace(" ", ""),
+            peak_device_gib=round(peak_gib, 3),
+            first_loss=losses[0], last_loss=losses[-1])
+
+        # (b) die and resume, each half a process of its own
+        ck = work / "ck"
+        free_gb = shutil.disk_usage(work).free / 1e9
+        drill = TRAIN_ARGS + ["--ckpt-dir", str(ck), "--ckpt-every",
+                              str(TRAIN_CKPT_EVERY), "--log-every", "5"]
+        rc1, s1, saves1, _ = _run_train(drill + ["--die-at",
+                                                 str(TRAIN_DIE_AT)], "die")
+        ck_gb = sum(f.stat().st_size for f in ck.iterdir()) / 1e9
+        rc2, s2, saves2, restores = _run_train(
+            drill + ["--resume", "--metrics-out", str(work / "b.json")],
+            "resume")
+        res = json.load(open(work / "b.json"))
+        resumed = np.asarray(res["losses"])
+        want = np.asarray(losses[res["start"]:])
+        diff = float(np.abs(resumed - want).max())
+        say("train", part="die-and-resume", free_disk_gb=round(free_gb, 1),
+            die_rc=rc1, die_run_s=round(s1, 3), resume_rc=rc2,
+            resume_run_s=round(s2, 3), start=res["start"],
+            checkpoint_gb=round(ck_gb, 3),
+            save_s=json.dumps(saves1 + saves2), restore_s=json.dumps(
+                restores), resumed_last_loss=float(resumed[-1]),
+            uninterrupted_last_loss=losses[-1],
+            max_abs_loss_diff_resumed_steps=diff,
+            bits_equal=bool((resumed == want).all()))
+        if rc1 != 42 or rc2 != 0 or res["start"] != TRAIN_CKPT_EVERY:
+            raise RuntimeError(f"[train] drill: rc {rc1}, {rc2}, start "
+                               f"{res['start']}")
+        if not np.allclose(resumed[-1], losses[-1], rtol=TRAIN_RESUME_RTOL,
+                           atol=0):
+            raise RuntimeError(f"[train] the resumed run ends on "
+                               f"{resumed[-1]}, the uninterrupted one on "
+                               f"{losses[-1]}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+    # (c) one step of the smoke config on the card against the CPU
+    for compress, accum in ((False, 1), (False, 2), (True, 1)):
+        r = _train_cpu_pair(compress, accum)
+        say("train", part="card-vs-cpu", arch="tinyllama-1.1b-smoke",
+            compress=compress, accum=accum, rtol=TRAIN_CPU_RTOL,
+            atol=TRAIN_CPU_ATOL, **r)
+        if (r["max_excess_over_tol"] > 0 or r["code_flips"]
+                > TRAIN_MAX_FLIP_SHARE * r["elements"]):
+            raise RuntimeError(f"[train] the card's step differs from the "
+                               f"CPU's: {r}")
+    say("train", phase_s=round(time.perf_counter() - t_phase, 3))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n", type=int, default=1_000_000,
@@ -1292,6 +1512,7 @@ def main() -> int:
     fleet_launches = phase_fleet(rt, torch, ds, indexes, search_out,
                                  serve_out["closed_qps"])
     phase_lm(rt, torch, ds, search_out)
+    phase_train(torch)
     for row in rows:
         if row["name"] == "fused_page_rank":
             row["serve_launches"] = serve_out["launches"]

@@ -14,3 +14,14 @@ def resolve_device(device=None) -> torch.device:
             "repro_torch runs on a CUDA device and none is available; pass "
             "device='cpu' to run the plain PyTorch path on the CPU")
     return dev
+
+
+def same_device(a: torch.device, b: torch.device) -> bool:
+    """Whether `a` and `b` name one device; "cuda" is the current card."""
+    if a.type != b.type:
+        return False
+    if a.type != "cuda" or a.index == b.index:
+        return True
+    cur = torch.cuda.current_device()
+    return (cur if a.index is None else a.index) == (
+        cur if b.index is None else b.index)

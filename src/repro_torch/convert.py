@@ -16,7 +16,8 @@ counters.
 `params_from_reference(params, cfg, device)` reads a `repro` model's
 parameter tree (nested dicts of arrays, stacked over stages, as
 `repro.models.init_params` returns it) and returns the port's
-`Transformer` with the same values, one parameter tree per layer.
+`Transformer` with the same values, one parameter tree per layer;
+`params_to_reference(model)` restacks them into the reference's tree.
 """
 from __future__ import annotations
 
@@ -31,7 +32,7 @@ from repro_torch.core.memgraph import MemGraph
 from repro_torch.core.pages import PageLayout
 from repro_torch.core.pq import PQ
 from repro_torch.models.transformer import (Transformer, num_blocks,
-                                            stage_len)
+                                            reference_tree, stage_len)
 from repro_torch.mutation.mutable_index import (MutableIndex, MutationConfig,
                                                 mutable_state)
 
@@ -122,3 +123,14 @@ def params_from_reference(params, cfg, device=None) -> Transformer:
             for e in range(cfg.encoder_layers)]
         tree["enc_norm"] = _tree(params["enc_norm"], leaf)
     return Transformer(cfg, tree)
+
+
+def params_to_reference(model: Transformer) -> dict:
+    """`model`'s parameters as the reference's tree of numpy arrays, the
+    blocks stacked over stages (the inverse of `params_from_reference`).
+    bfloat16 leaves come back as float32, exactly, since numpy has no
+    bfloat16."""
+    def leaf(st):
+        v = st.value()
+        return (v.float() if v.dtype == torch.bfloat16 else v).cpu().numpy()
+    return _tree(reference_tree(model), leaf)

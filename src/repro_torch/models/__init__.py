@@ -1,10 +1,13 @@
 """The LM stack of the port (src/repro/models/ in torch): the transformer
-as an `nn.Module` over every assigned family, its decode cache, and the
-prefill and decode steps. Training (`loss_fn`) and the dry-run specs come
-in later slices."""
-from repro_torch.models.model import decode_step, prefill_step
+as an `nn.Module` over every assigned family, its decode cache, the loss,
+the prefill and decode steps, and the dry run's abstract inputs and
+parameters."""
+from repro_torch.models.model import (abstract_params, decode_step,
+                                      input_specs, loss_fn, prefill_step)
 from repro_torch.models.transformer import (ParamTree, Transformer, forward,
-                                            init_cache, init_params)
+                                            init_cache, init_params,
+                                            reference_tree)
 
-__all__ = ["ParamTree", "Transformer", "decode_step", "forward",
-           "init_cache", "init_params", "prefill_step"]
+__all__ = ["ParamTree", "Transformer", "abstract_params", "decode_step",
+           "forward", "init_cache", "init_params", "input_specs", "loss_fn",
+           "prefill_step", "reference_tree"]

@@ -17,15 +17,20 @@ Modes:
 `init_params` draws from an explicit `torch.Generator` with the
 reference's distributions (not its `jax.random` stream);
 `repro_torch.convert.params_from_reference` carries the reference's
-parameters across instead.
+parameters across instead. `reference_tree` reads a `Transformer` in the
+reference's stacked layout, which the optimizer and the checkpoints walk.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, Dict, List, Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts,
+                                    noop_context_fn)
 
 from repro_torch._device import resolve_device
 from repro_torch.models import layers as L
@@ -107,6 +112,71 @@ class Transformer(ParamTree):
 
     def forward(self, tokens, **kw):
         return forward(self, self.cfg, tokens, **kw)
+
+
+class StackedLeaf:
+    """One leaf of the reference's parameter tree and the port's parameters
+    that make it: block tensors stacked over stages (or encoder layers)
+    along a new leading axis, or (`stacked` False) one tensor as it is."""
+
+    def __init__(self, params: List[nn.Parameter], stacked: bool):
+        self.params, self.stacked = params, stacked
+
+    @property
+    def shape(self) -> tuple:
+        p = self.params[0]
+        return ((len(self.params),) if self.stacked else ()) + tuple(p.shape)
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.params[0].dtype
+
+    @property
+    def device(self) -> torch.device:
+        return self.params[0].device
+
+    def stack(self, tensors) -> torch.Tensor:
+        """`tensors`, one per parameter of this leaf, in the leaf's shape."""
+        tensors = list(tensors)
+        return torch.stack(tensors) if self.stacked else tensors[0]
+
+    def value(self) -> torch.Tensor:
+        return self.stack(p.detach() for p in self.params)
+
+    @torch.no_grad()
+    def assign(self, value: torch.Tensor) -> None:
+        """Copy `value`, of the leaf's shape, into its parameters."""
+        for p, v in zip(self.params,
+                        value.unbind(0) if self.stacked else (value,)):
+            p.copy_(v)
+
+
+def reference_tree(model: ParamTree) -> Dict[str, Any]:
+    """`model`'s parameters in the reference's tree: nested dicts keyed as
+    `repro.models.init_params` keys them, "stages" / "pos{j}" holding layer
+    s * stage_len + j at stage s, and "encoder" the encoder layers, each
+    leaf a `StackedLeaf`."""
+    sl = stage_len(model.cfg)
+    leaves: Dict[tuple, list] = {}
+    stacked = set()
+    for name, p in model.named_parameters():
+        parts = name.split(".")
+        if parts[0] == "blocks":
+            path = ("stages", f"pos{int(parts[1]) % sl}", *parts[2:])
+        elif parts[0] == "encoder":
+            path = ("encoder", *parts[2:])
+        else:
+            path = tuple(parts)
+        if path != tuple(parts):
+            stacked.add(path)
+        leaves.setdefault(path, []).append(p)  # blocks come in stage order
+    tree: Dict[str, Any] = {}
+    for path, params in leaves.items():
+        node = tree
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = StackedLeaf(params, path in stacked)
+    return tree
 
 
 def _init_block(gen, cfg, j, dtype):
@@ -294,11 +364,35 @@ def _encoder(params, cfg, frames):
     return L.apply_norm(params["enc_norm"], x, cfg.norm)
 
 
+def _dots_saveable(ctx, op, *args, **kwargs):
+    """jax.checkpoint_policies.dots_with_no_batch_dims_saveable in torch:
+    keep the weight products (mm and addmm, no batch dimension) and
+    recompute everything else, the attention's batched products included."""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat_context(remat_policy):
+    """checkpoint's context_fn for `remat_policy`: "full" keeps only each
+    block's inputs, "dots" the weight products too."""
+    if remat_policy == "full":
+        return noop_context_fn
+    if remat_policy == "dots":
+        return functools.partial(create_selective_checkpoint_contexts,
+                                 _dots_saveable)
+    raise ValueError(f"remat_policy must be 'none', 'full' or 'dots', not "
+                     f"{remat_policy!r}")
+
+
 def forward(params, cfg, tokens, *, mode="train", cache=None, cur_index=None,
-            frames=None, mrope_positions=None, parallel=None):
+            frames=None, mrope_positions=None, parallel=None,
+            remat_policy="none"):
     """tokens (B,S) integer tensor on the parameters' device. Returns
     dict(logits, cache, aux_loss). `parallel` must be None: the sharded
-    paths come with parallel/ (ROADMAP A11c)."""
+    paths come with parallel/ (ROADMAP A11c). `remat_policy` "full" or
+    "dots" recomputes each block in the backward pass, as the reference's
+    `jax.checkpoint` of its stage function does."""
     if parallel is not None:
         raise ValueError(
             "forward runs on one device in this port (parallel=None); the "
@@ -338,11 +432,17 @@ def forward(params, cfg, tokens, *, mode="train", cache=None, cur_index=None,
     sl = stage_len(cfg)
     aux = torch.zeros((), dtype=torch.float32, device=dev)
     new_cache = []
+    remat_ctx = (None if remat_policy == "none"
+                 else _remat_context(remat_policy))
     for i, bp in enumerate(params["blocks"]):
-        x, nc, a = _apply_block(
-            bp, x, cfg, i % sl, mode=mode, positions=positions,
-            cache=cache[i], cur_index=cur_index, parallel=parallel,
-            enc_out=enc_out)
+        kw = dict(mode=mode, positions=positions, cache=cache[i],
+                  cur_index=cur_index, parallel=parallel, enc_out=enc_out)
+        if remat_ctx is None:
+            x, nc, a = _apply_block(bp, x, cfg, i % sl, **kw)
+        else:
+            x, nc, a = checkpoint(_apply_block, bp, x, cfg, i % sl,
+                                  use_reentrant=False, context_fn=remat_ctx,
+                                  **kw)
         new_cache.append(nc)
         aux = aux + a
 

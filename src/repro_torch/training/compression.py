@@ -1,0 +1,54 @@
+"""Gradient compression for the data-parallel reducer, the port of
+src/repro/training/compression.py.
+
+int8 quantization with error feedback (EF-SGD style): each step transmits
+round(g/scale) int8 + one f32 scale per tensor (≈4x wire reduction vs bf16,
+8x vs f32); the quantization residual is fed back into the next step so the
+optimizer sees an unbiased long-run gradient.
+
+On one device the wire format is emulated by quantize->dequantize around
+the gradient (numerics identical to a compressed collective). The scale is
+one per leaf of the reference's tree, so a leaf stacked over stages shares
+one scale, as in the reference. `torch.round` rounds half to even, as
+`jnp.round` does, so the int8 codes are the reference's bit for bit.
+The reference's `compressed_psum`, the int8 all-reduce, comes with the
+port's mesh code.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch._device import resolve_device
+from repro_torch.training.tree import param_tree, tree_map
+
+
+def quantize(g: torch.Tensor):
+    scale = torch.clamp(torch.max(torch.abs(g)), min=1e-12) / 127.0
+    q = torch.clamp(torch.round(g / scale), -127, 127).to(torch.int8)
+    return q, scale
+
+
+def dequantize(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    return q.to(torch.float32) * scale
+
+
+def ef_compress_tree(grads, error_state):
+    """Returns (compressed-dequantized grads, new error state)."""
+    def leaf(g, e):
+        gf = g.float() + e
+        q, s = quantize(gf)
+        deq = dequantize(q, s)
+        return deq.to(g.dtype), (gf - deq).float()
+
+    out = tree_map(leaf, grads, error_state)
+    return (tree_map(lambda _, o: o[0], grads, out),
+            tree_map(lambda _, o: o[1], grads, out))
+
+
+def init_error_state(grads_like, device=None):
+    """f32 zeros shaped as `grads_like`'s leaves (a `Transformer`'s are the
+    reference's stacked leaves) on `device` (default: the card)."""
+    dev = resolve_device(device)
+    return tree_map(lambda g: torch.zeros(tuple(g.shape), dtype=torch.float32,
+                                          device=dev),
+                    param_tree(grads_like))

@@ -405,3 +405,65 @@ def test_init_params_draws_on_the_card(card):
     assert all(p.device.type == "cuda" for p in params.parameters())
     with pytest.raises(ValueError, match="generator is on cpu"):
         init_params(cfg, torch.Generator().manual_seed(0))
+
+
+@pytest.mark.parametrize("compress,accum", [(False, 1), (False, 2),
+                                            (True, 1)],
+                         ids=["plain", "accum2", "compress"])
+def test_train_step_on_the_card_equals_the_cpu(card, compress, accum):
+    """The launcher's first step of the tinyllama smoke config on the card
+    equals the CPU's, float32 with TF32 off: the parameters at rtol 1e-4,
+    atol 1e-5, but for int8 codes that round the other way (at most 1e-3
+    of them), which may move by the lr (chip_smoke.py [train] (c))."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.train import first_step, step_difference
+    cfg = get_smoke_config("tinyllama-1.1b")
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        gpu = first_step(cfg, card, compress, accum)
+        cpu = first_step(cfg, "cpu", compress, accum)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    assert gpu[0].device.type == "cuda"
+    r = step_difference(gpu, cpu, 1e-4, 1e-5)
+    np.testing.assert_allclose(r["loss_a"], r["loss_b"], rtol=1e-5)
+    assert r["max_excess_over_tol"] <= 0, r
+    assert r["code_flips"] <= 1e-3 * r["elements"], r
+    if not compress:
+        assert r["code_flips"] == 0
+
+
+def test_checkpoint_of_card_tensors_round_trips(card, tmp_path):
+    """save/restore of a model, its optimizer state and a bfloat16 tensor
+    on the card give back the same bits, on the card."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import init_params
+    from repro_torch.training import checkpoint, optim
+    cfg = get_smoke_config("kimi-k2-1t-a32b")        # bfloat16 `m`
+    opt = optim.for_model(cfg)
+
+    def model(seed):
+        return init_params(cfg, torch.Generator(device=card).manual_seed(
+            seed), dtype=torch.float32)
+
+    src = model(0)
+    state = optim.init_state(src, opt)
+    state["mu"]["embed"]["table"]["m"].normal_()
+    extra = torch.randn(5, 3, device=card).to(torch.bfloat16)
+    checkpoint.save(tmp_path, 7, (src, state, extra))
+    dst = model(1)
+    (got, got_state, got_extra), step = checkpoint.restore(
+        tmp_path, (dst, optim.init_state(dst, opt), torch.zeros(
+            5, 3, dtype=torch.bfloat16, device=card)))
+    assert step == 7 and got is dst
+    for (n, a), (_, b) in zip(src.named_parameters(),
+                              got.named_parameters()):
+        assert b.device.type == "cuda"
+        assert torch.equal(a, b), n
+    want = state["mu"]["embed"]["table"]["m"]
+    back = got_state["mu"]["embed"]["table"]["m"]
+    assert back.dtype == torch.bfloat16 and back.device.type == "cuda"
+    assert torch.equal(back, want)
+    assert got_state["step"].dtype == torch.int32
+    assert got_extra.dtype == torch.bfloat16 and torch.equal(got_extra, extra)

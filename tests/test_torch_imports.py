@@ -20,7 +20,10 @@ def test_import_pulls_in_no_jax_repro_or_triton():
             "repro_torch.mutation, repro_torch.serving, "
             "repro_torch.serving.fleet, repro_torch.serving.engine, "
             "repro_torch.configs, repro_torch.models, "
-            "repro_torch.launch.serve; "
+            "repro_torch.launch.serve, repro_torch.data, "
+            "repro_torch.training.optim, repro_torch.training.accumulate, "
+            "repro_torch.training.compression, "
+            "repro_torch.training.checkpoint, repro_torch.launch.train; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro', 'triton')); print(bad)")
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
@@ -38,7 +41,10 @@ def test_import_pulls_in_no_jax_repro_or_triton():
                                     "repro_torch.configs",
                                     "repro_torch.models",
                                     "repro_torch.launch",
-                                    "repro_torch.launch.serve"])
+                                    "repro_torch.launch.serve",
+                                    "repro_torch.data",
+                                    "repro_torch.training",
+                                    "repro_torch.launch.train"])
 def test_subpackage_alone_pulls_in_no_jax_repro_or_triton(module):
     code = (f"import sys, {module}; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
@@ -104,3 +110,36 @@ def test_lm_entry_points_need_the_card_unless_told():
     assert params.device.type == "cpu"
     assert params.lm_head.dtype == torch.bfloat16      # param_dtype
     assert len(init_cache(cfg, 1, 4, device="cpu")) == cfg.num_layers
+
+
+def test_training_entry_points_need_the_card_unless_told(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch import train
+    from repro_torch.models import init_params
+    from repro_torch.training import checkpoint, compression, optim
+    cfg = get_smoke_config("tinyllama-1.1b")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train.main(["--smoke", "--steps", "1"])
+    params = init_params(cfg, torch.Generator().manual_seed(0),
+                         device="cpu")
+    opt = optim.for_model(cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        optim.init_state(params, opt)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        compression.init_error_state(params)
+    state = optim.init_state(params, opt, device="cpu")
+    assert state["step"].device.type == "cpu"
+    checkpoint.save(tmp_path, 1, (params, state))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        checkpoint.restore(tmp_path, (params, state))
+    with pytest.raises(ValueError, match="asked for on meta"):
+        optim.init_state(params, opt, device="meta")
+    with pytest.raises(ValueError, match="asked for on meta"):
+        checkpoint.restore(tmp_path, (params, state), device="meta")
+    (p2, s2), step = checkpoint.restore(tmp_path, (params, state),
+                                        device="cpu")
+    assert step == 1 and p2 is params and s2["step"].device.type == "cpu"
+    assert train.main(["--smoke", "--steps", "2", "--batch", "2", "--seq",
+                       "16"], device="cpu")[-1] > 0

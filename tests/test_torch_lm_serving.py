@@ -5,7 +5,8 @@ package's `init_params(PRNGKey(0), float32)`, carried across by
 `convert.params_from_reference`) and the same prompts made from a seed with
 numpy, must give the same greedy tokens for the tinyllama, chatglm3 (2d
 RoPE), qwen2-vl (M-RoPE), qwen2-moe, rwkv6, jamba (Mamba + attention +
-MoE) and whisper (with frames) smoke configs. `launch.serve.main` of the
+MoE), whisper (with frames), kimi-k2, stablelm-3b and stablelm-12b smoke
+configs. `launch.serve.main` of the
 port serves its requests with and without `--rag`.
 """
 import jax
@@ -22,7 +23,8 @@ from repro_torch.launch import serve
 from repro_torch.serving.engine import LMServer
 
 ARCHS = ("tinyllama-1.1b", "chatglm3-6b", "qwen2-vl-2b", "qwen2-moe-a2.7b",
-         "rwkv6-3b", "jamba-v0.1-52b", "whisper-small")
+         "rwkv6-3b", "jamba-v0.1-52b", "whisper-small", "kimi-k2-1t-a32b",
+         "stablelm-3b", "stablelm-12b")
 B, PROMPT, NEW = 2, 8, 8
 
 
