@@ -154,6 +154,45 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
                 way on the card may move by the lr more, and at most 1e-3
                 of the codes may (launch.train.step_difference).
 
+12. mesh    the mesh code (src/repro_torch/parallel, launch/mesh.py) on the
+            card, with [train]'s models freed first; f32, TF32 off:
+            (a) a one-rank NCCL mesh (1, 1) (launch.mesh.make_local_mesh)
+                and TinyLlama-1.1B at its full published width, parameters
+                from torch.Generator(device="cuda") seeded 0: loss_fn and
+                its gradients on 2 x 128 tokens with parallel=ctx against
+                parallel=None (the loss bit for bit, each gradient leaf
+                within rtol 1e-5 plus 2**-20 of its largest magnitude: the
+                embedding's backward adds with atomics), and LMServer
+                (parallel=ctx) greedy tokens for 8 prompts of 16 tokens, 16
+                new tokens each, equal to parallel=None's;
+            (b) expert parallelism for one qwen2-moe-a2.7b MoE layer at its
+                published width (60 experts padded to 64, top-4, d_model
+                2048, d_ff_expert 1408, 4 shared experts, capacity factor
+                1.25: 2.2 GB of f32 expert weights), B = 4, S = 256, in 2
+                processes (model = 2) and in 4 (data = 2, model = 2) on the
+                one card over gloo (launch.mesh.run_in_processes): each
+                rank's output and aux equal the local path on its data
+                shard within rtol 1e-5, atol 1e-5, and again with
+                gather_quant=True against the local path on fp8-rounded
+                expert weights where the layer gathers them; each call is
+                timed twice, the first with the groups' first contact;
+            (c) gpipe in the 4 processes: 4 stages of tanh(h @ W_s) at
+                D = 2048, B = 64, n_micro = 8, equal to the sequential
+                stack within 1e-5;
+            (d) compressed_psum in the 4 processes of a 2048 x 5632 f32
+                gradient per rank (torch.Generator seeded by the rank),
+                equal bit for bit to one process's sum of the four int8
+                code tensors times the max scale;
+            (e) checkpoint.restore(shardings=) of a checkpoint of
+                TinyLlama's embedding and first block, placed by
+                param_pspecs under the "tp" profile (P("model", None) /
+                P(None, "model")), onto (a)'s mesh and, in the 2
+                processes, onto a (data 1, model 2) mesh: each rank's block
+                equals its slice of the saved array.
+            It prints the seconds of each part and the transport each
+            collective used ("nccl", or "gloo-host": CUDA tensors copied
+            through host memory under gloo).
+
 The last lines are the kernels' JSON, the card's name and power limit, and
 {"ok": true, "device": {...}}. It needs one card, and exits non-zero without
 one, or when run without the rest of the repository.
@@ -239,6 +278,20 @@ TRAIN_CPU_RTOL, TRAIN_CPU_ATOL = 1e-4, 1e-5
 TRAIN_MAX_FLIP_SHARE = 1e-3
 # [train]: steps under the profiler for the device's busy share
 TRAIN_PROFILED_STEPS = 3
+
+
+# [mesh]: (a)'s tokens, prompts and new tokens; the gradients' tolerance
+# and the floor under it, a share of each leaf's largest magnitude
+MESH_B, MESH_S = 2, 128
+MESH_PROMPTS, MESH_PROMPT_LEN, MESH_NEW = 8, 16, 16
+MESH_GRAD_RTOL, MESH_GRAD_FLOOR = 1e-5, 2.0 ** -20
+# (b) the MoE layer's tokens and tolerance; (c) gpipe's shape; (d) the
+# gradient compressed_psum sums; the ranks' time limit
+MESH_MOE_B, MESH_MOE_S, MESH_MOE_TOL = 4, 256, 1e-5
+MESH_PIPE_STAGES, MESH_PIPE_D, MESH_PIPE_B, MESH_PIPE_MICRO = 4, 2048, 64, 8
+MESH_PIPE_TOL = 1e-5
+MESH_PSUM_SHAPE = (2048, 5632)
+MESH_RANK_TIMEOUT = 300
 
 
 # device memory peaks of the run before each phase that resets the counter
@@ -1461,6 +1514,299 @@ def phase_train(torch):
     say("train", phase_s=round(time.perf_counter() - t_phase, 3))
 
 
+def _tf32_off(torch) -> None:
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def _sync_s(torch, t0: float) -> float:
+    torch.cuda.synchronize()
+    return round(time.perf_counter() - t0, 3)
+
+
+def _restore_check(torch, ckpt, mesh, cfg) -> dict:
+    """restore(shardings=) of [mesh] (e)'s checkpoint onto `mesh`: each
+    leaf's block against its slice of the saved array, cut by hand from
+    the spec (the entries name "model" or nothing)."""
+    from repro_torch.parallel import ParallelContext
+    from repro_torch.parallel import sharding as sh
+    from repro_torch.parallel.api import NamedSharding
+    from repro_torch.training import checkpoint as ck
+    from repro_torch.training.tree import tree_items, tree_map
+    saved = np.load(ckpt / "step_00000001.proc0.npz")
+    target = {}
+    for key in saved.files:
+        node = target
+        *parents, name = key.split("/")
+        for k in parents:
+            node = node.setdefault(k, {})
+        node[name] = torch.empty(saved[key].shape, device="meta")
+    specs = sh.param_pspecs(ParallelContext(mesh, profile="tp"), cfg,
+                            target)
+    shd = tree_map(lambda t, spec: NamedSharding(mesh, spec), target, specs)
+    t0 = time.perf_counter()
+    tree, _ = ck.restore(ckpt, target, shardings=shd,
+                         device=mesh.device_type)
+    restore_s = _sync_s(torch, t0)
+    m, me = mesh.size(mesh_dim=1), mesh.get_local_rank("model")
+    sharded = 0
+    for path, leaf in tree_items(tree):
+        want = saved["/".join(path)]
+        spec = specs
+        for k in path:
+            spec = spec[k]
+        for dim, entry in enumerate(spec):
+            if entry == "model":
+                n = want.shape[dim] // m
+                want = want.take(range(me * n, (me + 1) * n), axis=dim)
+                sharded += 1
+        if not np.array_equal(leaf.to_local().cpu().numpy(), want):
+            raise RuntimeError(f"[mesh] restore: {path} differs from its "
+                               f"slice of the saved array")
+    return {"leaves": len(saved.files), "sharded_leaves": sharded,
+            "restore_s": restore_s}
+
+
+def _moe_case(torch, cfg, mesh, quant: bool) -> dict:
+    """[mesh] (b) on this rank: apply_moe on `mesh` against the local path
+    on this rank's data shard."""
+    from repro_torch.models import moe as MOE
+    from repro_torch.parallel import ParallelContext, comm
+    ctx = ParallelContext(mesh, gather_quant=quant)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    p = MOE.init_moe(gen, cfg, torch.float32)
+    x = torch.randn((MESH_MOE_B, MESH_MOE_S, cfg.d_model), device="cuda",
+                    generator=gen)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    y, aux = MOE.apply_moe(p, x, cfg, parallel=ctx)
+    ep_first_s = _sync_s(torch, t0)     # with the groups' first contact
+    t0 = time.perf_counter()
+    y2, _ = MOE.apply_moe(p, x, cfg, parallel=ctx)
+    ep_s = _sync_s(torch, t0)
+    w = ctx.moe_weight_axes(cfg)
+    if quant and (w["d_ff"] or w["d_model"]):
+        p = dict(p, **{k: p[k].to(torch.float8_e4m3fn).float()
+                       for k in ("wi", "wg", "wo")})
+    shards = x.chunk(mesh.size(mesh_dim=0))
+    t0 = time.perf_counter()
+    y_loc, _ = MOE.apply_moe(p, shards[mesh.get_local_rank("data")], cfg)
+    local_s = _sync_s(torch, t0)
+    aux_loc = torch.stack([MOE.apply_moe(p, xs, cfg)[1]
+                           for xs in shards]).mean()
+    # each call against the local path: the dispatch's index_add_ adds with
+    # atomics on the card, so two calls may differ in their last bits
+    ys = [y.to_local(), y2.to_local()]
+    ok = (all(torch.allclose(v, y_loc, rtol=MESH_MOE_TOL, atol=MESH_MOE_TOL)
+              for v in ys)
+          and torch.allclose(aux.to_local(), aux_loc, rtol=MESH_MOE_TOL,
+                             atol=MESH_MOE_TOL))
+    return {"ok": bool(ok),
+            "max_abs_err": max(float((v - y_loc).abs().max()) for v in ys),
+            "aux": float(aux.to_local()), "aux_local": float(aux_loc),
+            "ep_first_s": ep_first_s, "ep_s": ep_s, "local_s": local_s,
+            "gathers": [a for a in (w["d_ff"], w["d_model"]) if a],
+            "transport": comm.transport(mesh.get_group("model"), y.device)}
+
+
+def _mesh_rank2(rank, world, ckpt):
+    """[mesh] (b) at model = 2 and (e)'s two-rank restore."""
+    import torch
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.configs import get_config
+    _tf32_off(torch)
+    mesh = init_device_mesh("cuda", (1, world),
+                            mesh_dim_names=("data", "model"))
+    out = {}
+    for quant in (False, True):
+        t0 = time.perf_counter()
+        out[f"moe-model2-quant{int(quant)}"] = dict(
+            _moe_case(torch, get_config("qwen2-moe-a2.7b"), mesh, quant),
+            seconds=_sync_s(torch, t0))
+    t0 = time.perf_counter()
+    out["restore-2-ranks"] = dict(
+        _restore_check(torch, Path(ckpt), mesh,
+                       get_config("tinyllama-1.1b")),
+        seconds=_sync_s(torch, t0))
+    return out
+
+
+def _mesh_rank4(rank, world):
+    """[mesh] (b) at data = 2, model = 2, (c) gpipe and (d)
+    compressed_psum."""
+    import torch
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.configs import get_config
+    from repro_torch.parallel import comm
+    from repro_torch.parallel.pipeline import gpipe
+    from repro_torch.training.compression import compressed_psum, quantize
+    _tf32_off(torch)
+    out = {}
+    mesh = init_device_mesh("cuda", (2, 2), mesh_dim_names=("data", "model"))
+    for quant in (False, True):
+        t0 = time.perf_counter()
+        out[f"moe-data2-model2-quant{int(quant)}"] = dict(
+            _moe_case(torch, get_config("qwen2-moe-a2.7b"), mesh, quant),
+            seconds=_sync_s(torch, t0))
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    pod = init_device_mesh("cuda", (world,), mesh_dim_names=("pod",))
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    w = torch.randn((MESH_PIPE_STAGES, MESH_PIPE_D, MESH_PIPE_D),
+                    device="cuda", generator=gen) / MESH_PIPE_D ** 0.5
+    x = torch.randn((MESH_PIPE_B, MESH_PIPE_D), device="cuda", generator=gen)
+    t1 = time.perf_counter()
+    y = gpipe(lambda w_s, h: torch.tanh(h @ w_s), w, x, MESH_PIPE_MICRO,
+              axis="pod", mesh=pod)
+    pipe_s = _sync_s(torch, t1)
+    seq = x
+    for w_s in w:
+        seq = torch.tanh(seq @ w_s)
+    err = float((y - seq).abs().max())
+    out["gpipe"] = {"ok": err < MESH_PIPE_TOL, "max_abs_err": err,
+                    "gpipe_s": pipe_s, "seconds": _sync_s(torch, t0),
+                    "transport": comm.transport(pod.get_group("pod"),
+                                                y.device)}
+
+    t0 = time.perf_counter()
+    data = init_device_mesh("cuda", (world,), mesh_dim_names=("data",))
+
+    def grad(r):
+        return torch.randn(MESH_PSUM_SHAPE, device="cuda",
+                           generator=torch.Generator(device="cuda")
+                           .manual_seed(100 + r))
+    t1 = time.perf_counter()
+    s = compressed_psum(grad(rank), data.get_group("data"))
+    psum_s = _sync_s(torch, t1)
+    codes = [quantize(grad(r)) for r in range(world)]
+    want = (sum(q.to(torch.int32) for q, _ in codes).to(torch.float32)
+            * torch.stack([sc for _, sc in codes]).max())
+    out["compressed_psum"] = {
+        "ok": bool(torch.equal(s, want)),
+        "max_abs_err": float((s - want).abs().max()),
+        "psum_s": psum_s, "seconds": _sync_s(torch, t0),
+        "transport": comm.transport(data.get_group("data"), s.device)}
+    return out
+
+
+def _mesh_leaves(torch, params) -> dict:
+    """[mesh] (e)'s checkpoint: the embedding and the first block's
+    parameters, as nested dicts keyed as the reference keys them."""
+    tree = {"embed": {"table": params.embed.table.detach()}}
+    for name, t in params.blocks[0].named_parameters():
+        node = tree.setdefault("block", {})
+        *parents, leaf = name.split(".")
+        for k in parents:
+            node = node.setdefault(k, {})
+        node[leaf] = t.detach()
+    return tree
+
+
+def phase_mesh(torch):
+    """The mesh code on the card: a one-rank NCCL mesh through the model
+    and the LM server, then expert parallelism, gpipe, compressed_psum and
+    restore onto a mesh in processes sharing the card over gloo."""
+    import shutil
+    import tempfile
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_local_mesh, run_in_processes
+    from repro_torch.models import init_params, loss_fn
+    from repro_torch.parallel import ParallelContext, comm
+    from repro_torch.serving.engine import LMServer
+    from repro_torch.training import checkpoint as ck
+    from repro_torch.training.accumulate import value_and_grad
+    from repro_torch.training.tree import tree_items
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()              # [train]'s models are gone by now
+    (ROOT / "build").mkdir(exist_ok=True)
+    work = Path(tempfile.mkdtemp(prefix="mesh-", dir=ROOT / "build"))
+    try:
+        # (a) a one-rank NCCL mesh through the model and the server
+        t0 = time.perf_counter()
+        mesh = make_local_mesh()
+        ctx = ParallelContext(mesh)
+        cfg = get_config("tinyllama-1.1b")
+        params = init_params(cfg, torch.Generator(device="cuda")
+                             .manual_seed(0), dtype=torch.float32)
+        batch = {"tokens": torch.randint(
+            1, cfg.vocab_size, (MESH_B, MESH_S), device="cuda",
+            generator=torch.Generator(device="cuda").manual_seed(1))}
+        t1 = time.perf_counter()
+        (loss, _), grads = value_and_grad(
+            lambda p, b: loss_fn(p, cfg, b, parallel=ctx), params, batch)
+        ctx_s = _sync_s(torch, t1)
+        (loss0, _), grads0 = value_and_grad(
+            lambda p, b: loss_fn(p, cfg, b), params, batch)
+        excess = rel = 0.0
+        want = dict(tree_items(grads0))
+        for path, g in tree_items(grads):
+            w = want[path]
+            d = (g - w).abs()
+            tol = (MESH_GRAD_RTOL * w.abs()
+                   + MESH_GRAD_FLOOR * float(w.abs().max()))
+            excess = max(excess, float((d - tol).max()))
+            rel = max(rel, float((d / w.abs().clamp_min(1e-30)).max()))
+        del grads, grads0
+        prompts = torch.randint(
+            1, cfg.vocab_size, (MESH_PROMPTS, MESH_PROMPT_LEN),
+            generator=torch.Generator().manual_seed(2)).numpy()
+        t1 = time.perf_counter()
+        toks = LMServer(params, cfg, max_len=64, parallel=ctx).generate(
+            prompts, new_tokens=MESH_NEW)
+        serve_s = _sync_s(torch, t1)
+        toks0 = LMServer(params, cfg, max_len=64).generate(
+            prompts, new_tokens=MESH_NEW)
+        say("mesh", part="one-rank-nccl", arch="tinyllama-1.1b-f32",
+            mesh=dict(zip(mesh.mesh_dim_names, mesh.shape)),
+            backend=dist.get_backend(), loss=float(loss),
+            loss_bits_equal=float(loss) == float(loss0),
+            grad_leaves=len(want), grad_max_rel_err=rel,
+            grad_max_excess_over_tol=excess, loss_and_grads_ctx_s=ctx_s,
+            lm_tokens_equal=bool((toks == toks0).all()),
+            lm_generate_ctx_s=serve_s, seconds=_sync_s(torch, t0))
+        if float(loss) != float(loss0) or excess > 0 or not (
+                toks == toks0).all():
+            raise RuntimeError("[mesh] (a): the one-rank mesh changed the "
+                               "loss, the gradients or the tokens")
+
+        # (e) the checkpoint, restored onto the one-rank mesh
+        t0 = time.perf_counter()
+        ckpt = work / "ckpt"
+        ck.save(ckpt, 1, _mesh_leaves(torch, params))
+        save_s = _sync_s(torch, t0)
+        del params
+        torch.cuda.empty_cache()
+        r = _restore_check(torch, ckpt, mesh, cfg)
+        say("mesh", part="restore-one-rank", save_s=save_s,
+            checkpoint_mb=round(sum(f.stat().st_size for f in
+                                    ckpt.iterdir()) / 1e6, 1), **r,
+            seconds=_sync_s(torch, t0))
+        dist.destroy_process_group()
+
+        # (b) - (e) in processes sharing the card over gloo
+        for world, fn, args in ((4, _mesh_rank4, ()),
+                                (2, _mesh_rank2, (str(ckpt),))):
+            t0 = time.perf_counter()
+            ranks = run_in_processes(fn, world, *args, store_dir=work,
+                                     timeout=MESH_RANK_TIMEOUT)
+            wall = round(time.perf_counter() - t0, 3)
+            for part in ranks[0]:
+                rows = [rk[part] for rk in ranks]
+                say("mesh", part=part, ranks=world, ok=all(
+                    r.get("ok", True) for r in rows),
+                    **{k: v for k, v in rows[0].items() if k != "ok"},
+                    max_abs_err_all_ranks=max(r.get("max_abs_err", 0.0)
+                                              for r in rows))
+                if not all(r.get("ok", True) for r in rows):
+                    raise RuntimeError(f"[mesh] {part}: {rows}")
+            say("mesh", part=f"processes-{world}", wall_s=wall)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    say("mesh", phase_s=round(time.perf_counter() - t_phase, 3))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n", type=int, default=1_000_000,
@@ -1513,6 +1859,7 @@ def main() -> int:
                                  serve_out["closed_qps"])
     phase_lm(rt, torch, ds, search_out)
     phase_train(torch)
+    phase_mesh(torch)
     for row in rows:
         if row["name"] == "fused_page_rank":
             row["serve_launches"] = serve_out["launches"]

@@ -1,12 +1,29 @@
-"""Mixture-of-Experts, single-device branch.
+"""Expert-parallel Mixture-of-Experts, the port of src/repro/models/moe.py.
 
-The port of src/repro/models/moe.py for `parallel is None`: a softmax
-router with top-k gates, and sort-based static-capacity dispatch (no
-(T, E, C) one-hot tensor), experts padded to `MoEConfig.padded_experts` and
-masked to -1e30 in the router. The expert-parallel branch of the reference
-(`jax.shard_map` over the `model` mesh axis) comes with the port of
-`parallel/` (ROADMAP A11c); until then `apply_moe` refuses a `parallel`
-context.
+Design (the reference's):
+  - experts sharded over the `model` mesh axis (EP); expert d_ff additionally
+    sharded over `data` (FSDP) and, for the 1T-class config, expert d_model
+    over `pod`. Weights are all-gathered per layer (classic FSDP);
+  - tokens stay sharded over the data axes and are *replicated* along
+    `model`, so dispatch needs no all-to-all: each rank scatters its local
+    tokens into buffers for its local experts, runs the expert FFNs,
+    scatters back, and one all-reduce over `model` combines the partial
+    outputs;
+  - sort-based static-capacity dispatch (MaxText-style): no (T, E, C)
+    one-hot dispatch tensor is ever materialized;
+  - experts padded to a multiple of the EP degree (qwen2-moe: 60 -> 64),
+    padded experts masked to -1e30 in the router.
+
+`apply_moe` runs the local path on one device, or under a context whose
+mesh has no `model` axis. With one, it is the reference's `shard_map` body
+run by every rank of a `DeviceMesh`: each rank takes its block of the
+tokens and of the experts by the specs (DTensors placed so, or tensors
+every rank holds whole), routes its local tokens, gathers its experts'
+d_ff / d_model shards (in fp8 under `gather_quant`, moved as uint8 bits),
+and sums the output over `model` (`parallel.comm`). The capacity is the
+data shard's, `_capacity(t_loc, m)`, as in the reference: with data > 1
+the result is the local path applied to each data shard, not to the whole
+batch.
 
 Two orders decide which tokens a full expert drops, and both are the
 reference's: tokens are grouped by expert with a STABLE sort (jnp.argsort
@@ -20,8 +37,11 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.device_mesh import DeviceMesh
 
 from repro_torch.models.layers import _normal, apply_mlp, init_mlp
+from repro_torch.parallel import comm
+from repro_torch.parallel.api import P, from_local, local_tensor
 
 
 def init_moe(gen, cfg, dtype):
@@ -49,9 +69,11 @@ def _capacity(tokens_local: int, m) -> int:
     return min(c, ((tokens_local * m.top_k + 7) // 8) * 8)
 
 
-def _dispatch_local(x2, top_idx, gates, wi, wg, wo, *, e_off, e_loc, cap):
-    """Expert compute on one device. x2 (T, D); top_idx/gates (T, K);
-    wi/wg (e_loc, D, F), wo (e_loc, F, D)."""
+def _dispatch_local(x2, top_idx, gates, wi, wg, wo, *, e_off, e_loc, cap,
+                    psum_axes=(), mesh=None):
+    """Per-rank expert compute. x2 (T, D); top_idx/gates (T, K);
+    wi/wg (e_loc, D, F), wo (e_loc, F, D), already gathered to full D/F.
+    The output is summed over each of `psum_axes` of `mesh`."""
     t, d = x2.shape
     k = top_idx.shape[1]
     dev = x2.device
@@ -93,7 +115,10 @@ def _dispatch_local(x2, top_idx, gates, wi, wg, wo, *, e_off, e_loc, cap):
     flat_out = out_e.reshape(n_slot, d) * gate_for_slot[:, None]
     y = torch.zeros((t + 1, d), dtype=x2.dtype, device=dev)
     y.index_add_(0, tok_for_slot, flat_out)
-    return y[:-1]
+    y = y[:-1]
+    for ax in psum_axes:
+        y = comm.all_reduce(y, mesh.get_group(ax))
+    return y
 
 
 def router_topk(p, x2, m):
@@ -120,14 +145,17 @@ def router_topk(p, x2, m):
 
 
 def apply_moe(p, x, cfg, parallel=None):
-    """x (B, S, D) -> (out (B,S,D), aux_loss). Single device only."""
-    if parallel is not None:
-        raise ValueError(
-            "apply_moe runs on one device in this port (parallel=None); "
-            "the expert-parallel branch comes with parallel/ (ROADMAP "
-            "A11c)")
+    """x (B, S, D) -> (out (B,S,D), aux_loss).
+
+    parallel: a `repro_torch.parallel.ParallelContext` or None. Without a
+    `model` axis this is the single-device path; with one, every rank of
+    the context's `DeviceMesh` calls it and gets DTensors: `out` placed as
+    the tokens (batch over the data axes), `aux` replicated.
+    """
     m = cfg.moe
     b, s, d = x.shape
+    if parallel is not None and parallel.has_axis("model"):
+        return _apply_moe_ep(p, x, cfg, parallel)
     x2 = x.reshape(b * s, d)
     gates, idx, aux = router_topk(p, x2, m)
     gates = gates.to(x.dtype)
@@ -137,3 +165,70 @@ def apply_moe(p, x, cfg, parallel=None):
     if m.num_shared_experts:
         y = y + apply_mlp(p["shared"], x2, cfg.act)
     return y.reshape(b, s, d), aux
+
+
+def _apply_moe_ep(p, x, cfg, parallel):
+    """The expert-parallel branch: the reference's shard_map body on this
+    rank."""
+    mesh = parallel.mesh
+    if not isinstance(mesh, DeviceMesh):
+        raise ValueError(
+            "expert parallelism runs on the ranks of a DeviceMesh; this "
+            f"context's mesh is {type(mesh).__name__}, a shape only")
+    m = cfg.moe
+    b, s, d = x.shape
+    e_loc = m.padded_experts // parallel.axis_size("model")
+    dp_axes = parallel.batch_axes(b)       # axes the batch is sharded over
+    if "model" in dp_axes:
+        raise ValueError(f"the tokens must be replicated over `model`; the "
+                         f"{parallel.profile!r} profile shards a batch of "
+                         f"{b} over {dp_axes}")
+    t_loc = (b * s) // parallel.axes_size(dp_axes)
+    cap = _capacity(t_loc, m)
+    waxes = parallel.moe_weight_axes(cfg)  # d_model/d_ff -> axis or None
+    tok_spec = P(dp_axes if dp_axes else None, None, None)
+    wi_spec = P("model", waxes["d_model"], waxes["d_ff"])
+    wo_spec = P("model", waxes["d_ff"], waxes["d_model"])
+
+    def gather(w, ax_name, dim):
+        """FSDP weight gather, in fp8 under gather_quant (it halves the
+        wire bytes of the dominant kimi-1T collective)."""
+        g = mesh.get_group(ax_name)
+        if parallel.gather_quant:
+            return comm.all_gather(w.to(torch.float8_e4m3fn), g, dim
+                                   ).to(w.dtype)
+        return comm.all_gather(w, g, dim)
+
+    x_l = local_tensor(x, mesh, tok_spec)
+    x2_l = x_l.reshape(-1, d)
+    wi_l = local_tensor(p["wi"], mesh, wi_spec)
+    wg_l = local_tensor(p["wg"], mesh, wi_spec)
+    wo_l = local_tensor(p["wo"], mesh, wo_spec)
+    # router + top_k on LOCAL tokens (hoisting it out of the body would
+    # gather the (tokens, E) probs)
+    router = local_tensor(p["router"], mesh, P(None, None))
+    gates_l, idx_l, aux_l = router_topk({"router": router}, x2_l, m)
+    gates_l = gates_l.to(x2_l.dtype)
+    for ax in dp_axes:                     # pmean over the data axes
+        aux_l = comm.all_reduce(aux_l, mesh.get_group(ax))
+    aux_l = aux_l / parallel.axes_size(dp_axes)
+    e_off = mesh.get_local_rank("model") * e_loc
+    # FSDP gather of this layer's expert weights
+    if waxes["d_ff"] is not None:
+        wi_l = gather(wi_l, waxes["d_ff"], 2)
+        wg_l = gather(wg_l, waxes["d_ff"], 2)
+        wo_l = gather(wo_l, waxes["d_ff"], 1)
+    if waxes["d_model"] is not None:
+        wi_l = gather(wi_l, waxes["d_model"], 1)
+        wg_l = gather(wg_l, waxes["d_model"], 1)
+        wo_l = gather(wo_l, waxes["d_model"], 2)
+    y = _dispatch_local(x2_l, idx_l, gates_l, wi_l, wg_l, wo_l,
+                        e_off=e_off, e_loc=e_loc, cap=cap,
+                        psum_axes=("model",), mesh=mesh)
+    if m.num_shared_experts:
+        names = ("wi", "wg", "wo") if cfg.act == "swiglu" else ("wi", "wo")
+        shared = {k: local_tensor(p["shared"][k], mesh, P(None, None))
+                  for k in names}
+        y = y + apply_mlp(shared, x2_l, cfg.act)
+    return (from_local(y.reshape(x_l.shape), mesh, tok_spec, x.shape),
+            from_local(aux_l, mesh, P(), ()))

@@ -18,7 +18,8 @@ Modes:
 reference's distributions (not its `jax.random` stream);
 `repro_torch.convert.params_from_reference` carries the reference's
 parameters across instead. `reference_tree` reads a `Transformer` in the
-reference's stacked layout, which the optimizer and the checkpoints walk.
+reference's stacked layout, which the optimizer, the checkpoints and the
+sharding rules walk; `reference_cache` reads the decode cache so.
 """
 from __future__ import annotations
 
@@ -177,6 +178,20 @@ def reference_tree(model: ParamTree) -> Dict[str, Any]:
             node = node.setdefault(k, {})
         node[path[-1]] = StackedLeaf(params, path in stacked)
     return tree
+
+
+def reference_cache(cfg, cache: List[Dict[str, Any]]) -> Dict[str, Any]:
+    """The port's decode cache (one dict per layer) in the reference's tree:
+    "pos{j}" holding layer s * stage_len + j's state at stage s, each leaf
+    a `StackedLeaf` over stages."""
+    sl = stage_len(cfg)
+
+    def stack(layers):
+        if isinstance(layers[0], dict):
+            return {k: stack([c[k] for c in layers]) for k in layers[0]}
+        return StackedLeaf(layers, True)
+
+    return {f"pos{j}": stack(cache[j::sl]) for j in range(sl)}
 
 
 def _init_block(gen, cfg, j, dtype):
@@ -389,14 +404,19 @@ def forward(params, cfg, tokens, *, mode="train", cache=None, cur_index=None,
             frames=None, mrope_positions=None, parallel=None,
             remat_policy="none"):
     """tokens (B,S) integer tensor on the parameters' device. Returns
-    dict(logits, cache, aux_loss). `parallel` must be None: the sharded
-    paths come with parallel/ (ROADMAP A11c). `remat_policy` "full" or
-    "dots" recomputes each block in the backward pass, as the reference's
-    `jax.checkpoint` of its stage function does."""
-    if parallel is not None:
-        raise ValueError(
-            "forward runs on one device in this port (parallel=None); the "
-            "sharded paths come with parallel/ (ROADMAP A11c)")
+    dict(logits, cache, aux_loss). `parallel`, a `ParallelContext` or None,
+    lays the activations out tokens-major after the embedding and after
+    each block, as the reference does; on a one-device mesh that changes
+    nothing. A mesh of more than one device raises: running the whole
+    model on DTensors comes with the dry run (ROADMAP A11d).
+    `remat_policy` "full" or "dots" recomputes each block in the backward
+    pass, as the reference's `jax.checkpoint` of its stage function does."""
+    if parallel is not None and parallel.size > 1:
+        raise NotImplementedError(
+            f"forward on a mesh of {parallel.size} devices: the model runs "
+            f"on one device, or under a context on a one-device mesh; "
+            f"whole-model DTensor execution comes with the dry run "
+            f"(ROADMAP A11d)")
     b, s = tokens.shape
     dev = tokens.device
     if cur_index is not None:
@@ -429,6 +449,9 @@ def forward(params, cfg, tokens, *, mode="train", cache=None, cur_index=None,
     if cache is None:
         cache = init_cache(cfg, b, 1 if mode == "train" else s, device=dev)
 
+    if parallel is not None:
+        x = parallel.constrain_tokens_major(x, b)
+
     sl = stage_len(cfg)
     aux = torch.zeros((), dtype=torch.float32, device=dev)
     new_cache = []
@@ -443,6 +466,8 @@ def forward(params, cfg, tokens, *, mode="train", cache=None, cur_index=None,
             x, nc, a = checkpoint(_apply_block, bp, x, cfg, i % sl,
                                   use_reentrant=False, context_fn=remat_ctx,
                                   **kw)
+        if parallel is not None:
+            x = parallel.constrain_tokens_major(x, x.shape[0])
         new_cache.append(nc)
         aux = aux + a
 

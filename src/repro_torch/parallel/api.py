@@ -1,0 +1,281 @@
+"""ParallelContext: the single source of truth for mesh-axis decisions.
+
+The port of src/repro/parallel/api.py on `torch.distributed`. Both the
+sharding rules (parallel/sharding.py) and the explicit collectives of the
+expert-parallel MoE (models/moe.py) consult this object, so the two can
+never disagree about where a tensor lives.
+
+The mesh is a `DeviceMesh` whose `mesh_dim_names` are drawn from ("pod",
+"data", "model"), or a shape-only mesh: any object whose `shape` is a
+dict {axis: size}, which is enough for the rules and needs no ranks. The
+context keeps one {axis: size} map (`axes`) for both.
+
+`PartitionSpec` (`P`) is the reference's: one entry per tensor dim, each
+None, an axis name, or a tuple of names (the dim split over those axes,
+major to minor). A `NamedSharding(mesh, spec)` turns it into DTensor
+placements, one per mesh dim: `Shard(d)` on every mesh dim that tensor dim
+d names, `Replicate()` on the rest. DTensor splits a dim sharded over
+several mesh dims in the mesh's order, major first, so an entry must name
+its axes in the mesh's order, as every rule does; another order raises.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Optional, Sequence, Tuple
+
+import torch
+from torch.distributed.device_mesh import DeviceMesh
+from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor._utils import \
+    compute_local_shape_and_global_offset
+
+MESH_AXES = ("pod", "data", "model")
+# params above this count get their expert d_model FSDP-sharded over `pod`
+_POD_FSDP_THRESHOLD = 3e11
+
+
+class PartitionSpec(tuple):
+    """A tuple of per-dim entries, normalised as jax's: an entry of one
+    axis name is that name, an empty entry None."""
+
+    def __new__(cls, *entries):
+        def norm(e):
+            if isinstance(e, (tuple, list)):
+                e = tuple(e)
+                return None if not e else e[0] if len(e) == 1 else e
+            return e
+        return super().__new__(cls, tuple(norm(e) for e in entries))
+
+    def __getnewargs__(self):
+        return tuple(self)
+
+    def __repr__(self) -> str:
+        return "P" + tuple.__repr__(self)
+
+
+P = PartitionSpec
+
+
+def mesh_axes(mesh) -> Dict[str, int]:
+    """{axis: size} of a `DeviceMesh` or a shape-only mesh, in mesh order."""
+    if isinstance(mesh, DeviceMesh):
+        if mesh.mesh_dim_names is None:
+            raise ValueError("the DeviceMesh needs mesh_dim_names")
+        axes = dict(zip(mesh.mesh_dim_names, mesh.shape))
+    else:
+        axes = dict(mesh.shape)
+    bad = set(axes) - set(MESH_AXES)
+    if bad:
+        raise ValueError(f"mesh axes {sorted(bad)} are not among "
+                         f"{MESH_AXES}")
+    return axes
+
+
+def _entry_axes(entry) -> Tuple[str, ...]:
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def placements(mesh, spec: Sequence) -> tuple:
+    """DTensor placements, one per mesh dim, of `spec` on `mesh`."""
+    names = list(mesh_axes(mesh))
+    out: list = [Replicate()] * len(names)
+    for dim, entry in enumerate(spec):
+        idx = []
+        for a in _entry_axes(entry):
+            if a not in names:
+                raise ValueError(f"{spec!r} names axis {a!r}, not in the "
+                                 f"mesh's {tuple(names)}")
+            idx.append(names.index(a))
+        if idx != sorted(idx):
+            raise ValueError(f"{spec!r}: entry {entry!r} must name its axes "
+                             f"in the mesh's order {tuple(names)}")
+        for i in idx:
+            if isinstance(out[i], Shard):
+                raise ValueError(f"{spec!r} uses axis {names[i]!r} twice")
+            out[i] = Shard(dim)
+    return tuple(out)
+
+
+@dataclasses.dataclass(frozen=True)
+class NamedSharding:
+    """`spec` on `mesh`; `placements` are its DTensor placements."""
+    mesh: Any
+    spec: PartitionSpec
+
+    @property
+    def placements(self) -> tuple:
+        return placements(self.mesh, self.spec)
+
+
+def local_block(t: torch.Tensor, mesh: DeviceMesh, spec) -> torch.Tensor:
+    """This rank's block of `t`, a tensor every rank holds whole, under
+    `spec`: a view of `t`, found by DTensor's own shard arithmetic. No
+    communication."""
+    shape, offset = compute_local_shape_and_global_offset(
+        t.shape, mesh, placements(mesh, spec))
+    for dim, (n, o) in enumerate(zip(shape, offset)):
+        t = t.narrow(dim, o, n)
+    return t
+
+
+def local_tensor(t: torch.Tensor, mesh: DeviceMesh, spec) -> torch.Tensor:
+    """This rank's block of `t` under `spec`: a DTensor's local tensor (its
+    placements must be the spec's), or `local_block` of a tensor every rank
+    holds whole."""
+    if isinstance(t, DTensor):
+        want = placements(mesh, spec)
+        if t.device_mesh != mesh or tuple(t.placements) != want:
+            raise ValueError(f"a DTensor placed {tuple(t.placements)} is "
+                             f"asked for as {spec!r} ({want})")
+        return t.to_local()
+    return local_block(t, mesh, spec)
+
+
+def from_local(local: torch.Tensor, mesh: DeviceMesh, spec,
+               shape) -> DTensor:
+    """The DTensor of global `shape` (contiguous) whose block on this rank
+    is `local`, placed by `spec`."""
+    shape = torch.Size(shape)
+    stride = torch.empty(shape, device="meta").stride()
+    return DTensor.from_local(local, mesh, placements(mesh, spec),
+                              run_check=False, shape=shape, stride=stride)
+
+
+def distribute(t: torch.Tensor, sharding: NamedSharding,
+               device: Optional[torch.device] = None) -> DTensor:
+    """A DTensor of `t`, which every rank holds whole (on any device),
+    placed by `sharding`: only this rank's block is copied to `device`
+    (default: the mesh's device type). No communication."""
+    mesh = sharding.mesh
+    dev = torch.device(device if device is not None else mesh.device_type)
+    local = local_block(t, mesh, sharding.spec).to(dev).contiguous()
+    return from_local(local, mesh, sharding.spec, t.shape)
+
+
+@dataclasses.dataclass(frozen=True)
+class ParallelContext:
+    """profile:
+      "2d"   — FSDP x TP (batch over (pod,data), weights (data, model)) —
+               the right scheme for TP-worthy models and for decode latency.
+      "fsdp" — pure ZeRO-3: batch AND params sharded over every mesh axis,
+               no tensor parallelism — the right scheme for <8B dense models
+               on a 256-chip pod, where TP=16 activation all-reduces dwarf
+               FSDP param gathers.
+      "tp"   — weights over `model` only (decode).
+    gather_quant: fp8 weight gathers for the MoE FSDP path.
+    seq_shard: sequence parallelism (off for MoE archs — their EP design
+    token-replicates over model).
+    """
+    mesh: Any
+    profile: str = "2d"          # "2d" | "fsdp" | "tp"
+    gather_quant: bool = False
+    seq_shard: bool = True
+    axes: Dict[str, int] = dataclasses.field(init=False, repr=False,
+                                             compare=False)
+
+    def __post_init__(self):
+        object.__setattr__(self, "axes", mesh_axes(self.mesh))
+
+    @property
+    def size(self) -> int:
+        return self.axes_size(tuple(self.axes))
+
+    @property
+    def multi_pod(self) -> bool:
+        return "pod" in self.axes
+
+    def has_axis(self, name: str) -> bool:
+        return self.axes.get(name, 1) > 1
+
+    def axis_size(self, name: str) -> int:
+        return self.axes.get(name, 1)
+
+    def axes_size(self, names: Sequence[str]) -> int:
+        n = 1
+        for a in names:
+            n *= self.axis_size(a)
+        return n
+
+    def batch_axes(self, batch: int) -> Tuple[str, ...]:
+        """Largest divisible prefix of the profile's data axes."""
+        cands = ([("pod", "data", "model"), ("data", "model"),
+                  ("pod", "data"), ("data",)]
+                 if self.profile == "fsdp" else
+                 [("pod", "data"), ("data",)])
+        for axes in cands:
+            if not all(a in self.axes for a in axes):
+                continue
+            if batch % self.axes_size(axes) == 0 and self.axes_size(axes) > 1:
+                return axes
+        return ()
+
+    def fsdp_weight_axes(self, dim: int):
+        """Best divisible axis combo for ZeRO-3 weight sharding."""
+        for axes in (("pod", "data", "model"), ("data", "model"),
+                     ("data",), ("model",)):
+            if (all(a in self.axes for a in axes)
+                    and dim % self.axes_size(axes) == 0):
+                return axes
+        return None
+
+    def dp_spec(self, batch: int):
+        ax = self.batch_axes(batch)
+        return ax if ax else None
+
+    def divides(self, dim: int, axes) -> bool:
+        if axes is None:
+            return True
+        if isinstance(axes, str):
+            axes = (axes,)
+        return dim % self.axes_size(axes) == 0
+
+    def moe_weight_axes(self, cfg) -> dict:
+        """How expert weights (E, d_model, d_ff) are sharded beyond EP."""
+        d_ff_ax = None
+        if (self.profile != "tp" and self.has_axis("data")
+                and cfg.moe.d_ff_expert % self.axis_size("data") == 0):
+            d_ff_ax = "data"
+        d_model_ax = None
+        if (self.multi_pod and cfg.param_count() > _POD_FSDP_THRESHOLD
+                and cfg.d_model % self.axis_size("pod") == 0):
+            d_model_ax = "pod"
+        return {"d_ff": d_ff_ax, "d_model": d_model_ax}
+
+    def sharding(self, spec) -> NamedSharding:
+        return NamedSharding(self.mesh, P(*spec))
+
+    def constrain(self, x, *spec):
+        """`x` laid out as `spec`: `x` itself on a one-device mesh; on a
+        larger one a DTensor redistributed to the spec's placements. A
+        plain tensor there raises: its layout is unknown."""
+        if self.size == 1:
+            return x
+        if not isinstance(x, DTensor):
+            raise TypeError(
+                f"constrain on a mesh of {self.size} devices needs a "
+                f"DTensor, not a {type(x).__name__}")
+        return x.redistribute(self.mesh, placements(self.mesh, spec))
+
+    def constrain_tokens_major(self, x, batch: int):
+        """Activation layout between blocks: batch -> (pod, data); under the
+        2d profile the SEQUENCE dim is additionally sharded over `model`
+        (Megatron-style sequence parallelism: it turns the per-layer
+        (B,S,D) all-reduce into gathers of the much smaller GQA K/V tensors
+        inside attention)."""
+        dp = self.batch_axes(batch)
+        seq_ax = None
+        if (self.profile in ("2d", "fsdp") and self.seq_shard and x.ndim == 3
+                and self.has_axis("model")
+                and "model" not in (dp or ())
+                and x.shape[1] % self.axis_size("model") == 0
+                and x.shape[1] > 1):
+            # 2d: Megatron sequence parallelism. fsdp-prefill: the batch may
+            # not cover (data x model); without seq-sharding the model axis
+            # would idle
+            seq_ax = "model"
+        if x.ndim == 3:
+            return self.constrain(x, dp if dp else None, seq_ax, None)
+        return self.constrain(x, dp if dp else None,
+                              *([None] * (x.ndim - 1)))

@@ -5,9 +5,10 @@ The port of src/repro/serving/engine.py. The reference jits its two step
 functions; the port runs them eagerly under `torch.inference_mode()`, on
 the device of the parameters. Greedy decoding (`temperature <= 0`) is the
 reference's argmax; sampling draws from a `torch.Generator` seeded with
-`seed`, a different stream from the reference's `jax.random` one. Only the
-single-device path exists (`parallel=None`); the sharded one comes with
-parallel/ (ROADMAP A11c).
+`seed`, a different stream from the reference's `jax.random` one.
+`parallel`, a `ParallelContext` or None, goes to both steps; the model
+runs under a context on a one-device mesh, and a larger mesh raises in
+`forward` (ROADMAP A11d).
 """
 from __future__ import annotations
 
@@ -21,11 +22,8 @@ from repro_torch.models import decode_step, init_cache, prefill_step
 
 class LMServer:
     def __init__(self, params, cfg, max_len: int = 512, parallel=None):
-        if parallel is not None:
-            raise ValueError(
-                "LMServer runs on one device in this port (parallel=None); "
-                "the sharded path comes with parallel/ (ROADMAP A11c)")
         self.params, self.cfg, self.max_len = params, cfg, max_len
+        self.parallel = parallel
         self.device = params.device
 
     def generate(self, prompts: np.ndarray, new_tokens: int = 32,
@@ -40,7 +38,8 @@ class LMServer:
             # prefill fills a max_len cache: the prompt's cache goes into
             # the prefix of a max_len buffer
             cache = init_cache(cfg, b, self.max_len, device=dev)
-            logits, pf_cache = prefill_step(self.params, cfg, batch)
+            logits, pf_cache = prefill_step(self.params, cfg, batch,
+                                            parallel=self.parallel)
             cache = [_fit(d, c) for d, c in zip(cache, pf_cache)]
 
             gen = torch.Generator(device=dev).manual_seed(seed)
@@ -52,6 +51,7 @@ class LMServer:
                 out.append(tok)
                 logits, cache = decode_step(self.params, cfg, tok[:, None],
                                             cache, s + i,
+                                            parallel=self.parallel,
                                             mrope_positions=mp0)
                 tok = self._pick(logits, temperature, gen)
             return torch.stack(out, dim=1).to(torch.int32).cpu().numpy()

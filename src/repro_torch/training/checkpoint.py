@@ -14,6 +14,9 @@ in the reference's file format:
     by either package restores in the other
   - dtypes numpy cannot hold (bfloat16) are stored as float32, exactly,
     and cast back to the target's dtype on restore
+  - restore(shardings=) places each leaf onto a mesh as a DTensor (the
+    elastic-restart reshard path): every rank reads the one file process 0
+    saved and keeps only its own block of each leaf
 """
 from __future__ import annotations
 
@@ -32,7 +35,8 @@ import torch
 from repro_torch._device import resolve_device, same_device
 from repro_torch.models.transformer import (StackedLeaf, Transformer,
                                             reference_tree)
-from repro_torch.training.tree import tree_items
+from repro_torch.parallel.api import NamedSharding, distribute
+from repro_torch.training.tree import tree_items, tree_leaves
 
 _NUMPY_FLOATS = (torch.float16, torch.float32, torch.float64)
 
@@ -124,39 +128,61 @@ def restore(ckpt_dir, target_tree: Any, *, step: Optional[int] = None,
     """Restore into the structure of target_tree on `device` (default: the
     card). A `Transformer` in the target, which must lie on `device`, takes
     the values in place and is returned; every other leaf becomes a new
-    tensor of its target's dtype. Returns (tree, step)."""
-    if shardings is not None:
-        raise NotImplementedError(
-            "restore(shardings=): restoring onto a new mesh comes with the "
-            "port's mesh code (ROADMAP A11c)")
+    tensor of its target's dtype. `shardings`, a tree matching the target's
+    with a `parallel.NamedSharding` (or None) at each tensor leaf, places
+    those leaves as DTensors on the sharding's mesh, whose device type must
+    be `device`'s: each rank copies only its block to the device, with no
+    communication. When some leaf carries a sharding, every rank reads the
+    file of process 0 (the reference reads `proc{process_index}`, which is
+    that file in a one-process run over several devices); otherwise each
+    reads its own. Returns (tree, step)."""
     dev = resolve_device(device)
     step = step if step is not None else latest_step(ckpt_dir)
     if step is None:
         raise FileNotFoundError(f"no checkpoint in {ckpt_dir}")
-    path = Path(ckpt_dir) / f"step_{step:08d}.proc{_process_index()}.npz"
+    placed = any(isinstance(s, NamedSharding)
+                 for s in tree_leaves(shardings))
+    pidx = 0 if placed else _process_index()
+    path = Path(ckpt_dir) / f"step_{step:08d}.proc{pidx}.npz"
     with np.load(path) as data:
-        return _load(target_tree, data, (), dev), step
+        return _load(target_tree, data, (), dev, shardings), step
 
 
-def _load(target, data, prefix, dev):
-    """`target` restored from `data` on `dev`."""
+def _load(target, data, prefix, dev, shd=None):
+    """`target` restored from `data` on `dev`, placed by the shardings
+    `shd` (a matching tree, or None)."""
     if isinstance(target, (list, tuple)):
-        return type(target)(_load(t, data, prefix + (i,), dev)
-                            for i, t in enumerate(target))
+        return type(target)(
+            _load(t, data, prefix + (i,), dev,
+                  None if shd is None else shd[i])
+            for i, t in enumerate(target))
     if isinstance(target, dict):
-        return {k: _load(v, data, prefix + (k,), dev)
+        return {k: _load(v, data, prefix + (k,), dev,
+                         None if shd is None else shd[k])
                 for k, v in target.items()}
 
     def arr(path):
         return torch.from_numpy(data[_key(path)])
 
     if isinstance(target, Transformer):
+        if shd is not None:
+            raise ValueError("restore: a Transformer takes its values in "
+                             "place on one device; place tensor leaves "
+                             "onto a mesh instead (whole-model DTensors "
+                             "come with ROADMAP A11d)")
         if not same_device(target.device, dev):
             raise ValueError(f"restore: the model is on {target.device}, "
                              f"the checkpoint is asked for on {dev}")
         for path, leaf in tree_items(reference_tree(target), prefix):
             leaf.assign(arr(path).to(dev, leaf.dtype))
         return target
+    host = arr(prefix)
     if isinstance(target, torch.Tensor):
-        return arr(prefix).to(dev, target.dtype)
-    return arr(prefix).to(dev)
+        host = host.to(target.dtype)
+    if shd is None:
+        return host.to(dev)
+    if shd.mesh.device_type != dev.type:
+        raise ValueError(f"restore: {_key(prefix)}'s sharding is on a "
+                         f"{shd.mesh.device_type} mesh, the checkpoint is "
+                         f"asked for on {dev}")
+    return distribute(host, shd, dev)

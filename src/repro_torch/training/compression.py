@@ -11,14 +11,15 @@ the gradient (numerics identical to a compressed collective). The scale is
 one per leaf of the reference's tree, so a leaf stacked over stages shares
 one scale, as in the reference. `torch.round` rounds half to even, as
 `jnp.round` does, so the int8 codes are the reference's bit for bit.
-The reference's `compressed_psum`, the int8 all-reduce, comes with the
-port's mesh code.
+`compressed_psum` is the int8 all-reduce of the explicit data-parallel
+path, over a `torch.distributed` process group.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch._device import resolve_device
+from repro_torch.parallel import comm
 from repro_torch.training.tree import param_tree, tree_map
 
 
@@ -52,3 +53,13 @@ def init_error_state(grads_like, device=None):
     return tree_map(lambda g: torch.zeros(tuple(g.shape), dtype=torch.float32,
                                           device=dev),
                     param_tree(grads_like))
+
+
+def compressed_psum(g: torch.Tensor, group=None) -> torch.Tensor:
+    """int8 all-reduce over `group` (None: the default group): quantize
+    locally, sum the int8 payload in an int32 accumulator, dequantize with
+    the max scale. Every member gets the same tensor."""
+    q, s = quantize(g)
+    total = comm.all_reduce(q.to(torch.int32), group)
+    smax = comm.all_reduce(s, group, op="max")
+    return (total.to(torch.float32) * smax).to(g.dtype)

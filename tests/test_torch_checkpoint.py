@@ -10,7 +10,9 @@ packages both ways.
   and resumed, continues the reference's loss trajectory at rtol 1e-4;
   the port's checkpoint, restored by the reference and resumed, continues
   the port's;
-- `restore(shardings=...)` waits for the mesh code and says so.
+- `restore(shardings=...)` refuses a `Transformer` (its placement on a
+  mesh waits for ROADMAP A11d) and leaves a leaf whose sharding is None
+  as it restores without one.
 """
 import jax
 import jax.numpy as jnp
@@ -73,10 +75,21 @@ def test_checkpoint_prune_keeps_k(tmp_path):
 
 
 def test_restore_onto_a_mesh_waits_for_the_mesh_code(tmp_path):
-    ck.save(tmp_path, 1, {"w": torch.zeros(2)})
-    with pytest.raises(NotImplementedError, match="A11c"):
-        ck.restore(tmp_path, {"w": torch.zeros(2)}, shardings={"w": None},
-                   device="cpu")
+    """Tensor leaves restore onto a mesh (tests/
+    test_torch_parallel_collectives.py); a `Transformer`, which takes its
+    values in place on one device, is refused a sharding until
+    whole-model DTensors come (ROADMAP A11d). A sharding of None leaves a
+    leaf as it restores without one."""
+    cfg = rc.get_smoke_config("tinyllama-1.1b")
+    model = init_params(cfg, torch.Generator().manual_seed(0),
+                        dtype=torch.float32, device="cpu")
+    ck.save(tmp_path, 1, {"model": model, "w": torch.arange(3.0)})
+    with pytest.raises(ValueError, match="A11d"):
+        ck.restore(tmp_path, {"model": model, "w": torch.zeros(3)},
+                   shardings={"model": object(), "w": None}, device="cpu")
+    tree, _ = ck.restore(tmp_path, {"w": torch.zeros(3)},
+                         shardings={"w": None}, device="cpu")
+    assert torch.equal(tree["w"], torch.arange(3.0))
 
 
 @pytest.mark.parametrize("arch", ["tinyllama-1.1b", "kimi-k2-1t-a32b"])

@@ -467,3 +467,168 @@ def test_checkpoint_of_card_tensors_round_trips(card, tmp_path):
     assert torch.equal(back, want)
     assert got_state["step"].dtype == torch.int32
     assert got_extra.dtype == torch.bfloat16 and torch.equal(got_extra, extra)
+
+
+# ---------------------------------------------------------------------------
+# the mesh code on the card: a one-rank NCCL mesh in this process, and ranks
+# that share the one card over gloo (NCCL refuses two ranks on one device),
+# each call killed after RANK_TIMEOUT s (chip_smoke.py [mesh] at full width)
+
+RANK_TIMEOUT = 120
+
+
+def _tf32_off():
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def test_one_rank_nccl_mesh_changes_nothing(card):
+    """The tinyllama smoke config under a context on a one-rank NCCL mesh:
+    the loss and the gradients bit for bit those of parallel=None, on the
+    same card (the embedding's backward may add in another order: its
+    leaves within rtol 1e-5 and 2**-20 of their largest magnitude), and
+    the LM server's greedy tokens the same."""
+    import torch.distributed as dist
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import init_params, loss_fn
+    from repro_torch.parallel import ParallelContext
+    from repro_torch.serving.engine import LMServer
+    from repro_torch.training.accumulate import value_and_grad
+    from repro_torch.training.tree import tree_items
+    mesh = make_local_mesh()
+    try:
+        assert dist.get_backend() == "nccl"
+        ctx = ParallelContext(mesh)
+        cfg = get_smoke_config("tinyllama-1.1b")
+        params = init_params(cfg, torch.Generator(device=card).manual_seed(
+            0), dtype=torch.float32)
+        batch = {"tokens": torch.randint(1, cfg.vocab_size, (2, 32),
+                                         device=card)}
+        (loss, _), grads = value_and_grad(
+            lambda p, b: loss_fn(p, cfg, b, parallel=ctx), params, batch)
+        (loss0, _), grads0 = value_and_grad(
+            lambda p, b: loss_fn(p, cfg, b), params, batch)
+        assert float(loss) == float(loss0)
+        want = dict(tree_items(grads0))
+        for path, g in tree_items(grads):
+            w = want[path]
+            tol = 1e-5 * w.abs() + 2.0 ** -20 * float(w.abs().max())
+            assert bool(((g - w).abs() <= tol).all()), path
+        prompts = np.random.default_rng(0).integers(1, cfg.vocab_size,
+                                                    (4, 8))
+        np.testing.assert_array_equal(
+            LMServer(params, cfg, max_len=32, parallel=ctx).generate(
+                prompts, new_tokens=8),
+            LMServer(params, cfg, max_len=32).generate(prompts,
+                                                       new_tokens=8))
+    finally:
+        dist.destroy_process_group()
+
+
+def _moe_rank(rank, world, shape, quant):
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import moe as MOE
+    from repro_torch.parallel import ParallelContext, comm
+    _tf32_off()
+    cfg = get_smoke_config("qwen2-moe-a2.7b")
+    mesh = init_device_mesh("cuda", shape, mesh_dim_names=("data", "model"))
+    ctx = ParallelContext(mesh, gather_quant=quant)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    p = MOE.init_moe(gen, cfg, torch.float32)
+    x = torch.randn((4, 32, cfg.d_model), device="cuda", generator=gen)
+    y, aux = MOE.apply_moe(p, x, cfg, parallel=ctx)
+    if quant and ctx.moe_weight_axes(cfg)["d_ff"]:
+        p = dict(p, **{k: p[k].to(torch.float8_e4m3fn).float()
+                       for k in ("wi", "wg", "wo")})
+    shards = x.chunk(shape[0])
+    y_loc, _ = MOE.apply_moe(p, shards[mesh.get_local_rank("data")], cfg)
+    aux_loc = torch.stack([MOE.apply_moe(p, xs, cfg)[1]
+                           for xs in shards]).mean()
+    return (float((y.to_local() - y_loc).abs().max()),
+            float((aux.to_local() - aux_loc).abs()), y.to_local().is_cuda,
+            comm.transport(mesh.get_group("model"), y.device))
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["f32", "fp8-gather"])
+@pytest.mark.parametrize("shape", [(1, 2), (2, 2)], ids=["model2",
+                                                         "data2-model2"])
+def test_expert_parallel_moe_on_the_card(card, tmp_path, shape, quant):
+    """The qwen2-moe smoke layer in 2 or 4 ranks on the card equals the
+    local path on each rank's data shard (fp8-rounded expert weights where
+    gather_quant gathers them) within 1e-5."""
+    from repro_torch.launch.mesh import run_in_processes
+    for err, aux_err, on_card, how in run_in_processes(
+            _moe_rank, shape[0] * shape[1], shape, quant,
+            store_dir=tmp_path, timeout=RANK_TIMEOUT):
+        assert on_card and how == "gloo-host"
+        assert err <= 1e-5 and aux_err <= 1e-5, (err, aux_err)
+
+
+def _pipe_and_psum_rank(rank, world):
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.parallel.pipeline import gpipe
+    from repro_torch.training.compression import compressed_psum, quantize
+    _tf32_off()
+    pod = init_device_mesh("cuda", (world,), mesh_dim_names=("pod",))
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    w = torch.randn((world, 64, 64), device="cuda", generator=gen) / 8
+    x = torch.randn((16, 64), device="cuda", generator=gen)
+    y = gpipe(lambda w_s, h: torch.tanh(h @ w_s), w, x, 4, axis="pod",
+              mesh=pod)
+    seq = x
+    for w_s in w:
+        seq = torch.tanh(seq @ w_s)
+
+    def grad(r):
+        return torch.randn((64, 48), device="cuda", generator=torch.Generator(
+            device="cuda").manual_seed(10 + r))
+    s = compressed_psum(grad(rank), pod.get_group("pod"))
+    codes = [quantize(grad(r)) for r in range(world)]
+    want = (sum(q.to(torch.int32) for q, _ in codes).float()
+            * torch.stack([sc for _, sc in codes]).max())
+    return float((y - seq).abs().max()), bool(torch.equal(s, want))
+
+
+def test_gpipe_and_compressed_psum_on_the_card(card, tmp_path):
+    """4 ranks on the card: gpipe of 4 stages equals the sequential stack
+    within 1e-5; compressed_psum equals the sum of the int8 codes times
+    the max scale bit for bit."""
+    from repro_torch.launch.mesh import run_in_processes
+    for err, psum_equal in run_in_processes(
+            _pipe_and_psum_rank, 4, store_dir=tmp_path,
+            timeout=RANK_TIMEOUT):
+        assert err < 1e-5 and psum_equal, (err, psum_equal)
+
+
+def _transport_rank(rank, world):
+    import torch.distributed as dist
+    from repro_torch.parallel import comm
+    t = torch.full((3, 2), float(rank + 1), device="cuda")
+    f8 = t.to(torch.float8_e4m3fn)
+    return (comm.transport(None, t.device),
+            comm.all_reduce(t).cpu().numpy(),
+            comm.all_reduce(t, op="max").cpu().numpy(),
+            comm.all_gather(t, dim=1).cpu().numpy(),
+            comm.all_gather(f8, dim=0).float().cpu().numpy(),
+            comm.ring_shift(t).cpu().numpy(),
+            comm.all_reduce(t).is_cuda, dist.get_backend())
+
+
+def test_gloo_host_transport_round_trips_card_tensors(card, tmp_path):
+    """Under gloo, CUDA tensors go through host memory ("gloo-host") and
+    come back on the card with the collective's result."""
+    from repro_torch.launch.mesh import run_in_processes
+    out = run_in_processes(_transport_rank, 2, store_dir=tmp_path,
+                           timeout=RANK_TIMEOUT)
+    for rank, (how, s, m, g, g8, ring, on_card, backend) in enumerate(out):
+        assert how == "gloo-host" and backend == "gloo" and on_card
+        np.testing.assert_array_equal(s, np.full((3, 2), 3.0))
+        np.testing.assert_array_equal(m, np.full((3, 2), 2.0))
+        np.testing.assert_array_equal(
+            g, np.concatenate([np.full((3, 2), 1.0), np.full((3, 2), 2.0)],
+                              axis=1))
+        np.testing.assert_array_equal(
+            g8, np.concatenate([np.full((3, 2), 1.0), np.full((3, 2), 2.0)]))
+        np.testing.assert_array_equal(ring, np.full((3, 2), 2.0 - rank))

@@ -23,7 +23,10 @@ def test_import_pulls_in_no_jax_repro_or_triton():
             "repro_torch.launch.serve, repro_torch.data, "
             "repro_torch.training.optim, repro_torch.training.accumulate, "
             "repro_torch.training.compression, "
-            "repro_torch.training.checkpoint, repro_torch.launch.train; "
+            "repro_torch.training.checkpoint, repro_torch.launch.train, "
+            "repro_torch.parallel, repro_torch.parallel.sharding, "
+            "repro_torch.parallel.pipeline, repro_torch.parallel.comm, "
+            "repro_torch.launch.mesh; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro', 'triton')); print(bad)")
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
@@ -44,7 +47,11 @@ def test_import_pulls_in_no_jax_repro_or_triton():
                                     "repro_torch.launch.serve",
                                     "repro_torch.data",
                                     "repro_torch.training",
-                                    "repro_torch.launch.train"])
+                                    "repro_torch.launch.train",
+                                    "repro_torch.parallel",
+                                    "repro_torch.parallel.sharding",
+                                    "repro_torch.parallel.pipeline",
+                                    "repro_torch.launch.mesh"])
 def test_subpackage_alone_pulls_in_no_jax_repro_or_triton(module):
     code = (f"import sys, {module}; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "

@@ -57,13 +57,25 @@ def test_greedy_tokens_equal_the_reference(arch):
     assert ((sampled >= 0) & (sampled < cfg.padded_vocab)).all()
 
 
+class _ShapeOnlyMesh:
+    def __init__(self, shape):
+        self.shape = shape
+
+
 def test_server_refuses_a_parallel_context():
+    """A context on a mesh of more than one device is refused when the
+    server runs the model: whole-model DTensor execution waits for ROADMAP
+    A11d (the one-device mesh is held in
+    tests/test_torch_parallel_model.py)."""
+    from repro_torch.parallel import ParallelContext
     cfg = get_smoke_config("tinyllama-1.1b")
     params = params_from_reference(
         init_params(cfg, jax.random.PRNGKey(0), dtype=jnp.float32), cfg,
         "cpu")
-    with pytest.raises(ValueError, match="A11c"):
-        LMServer(params, cfg, parallel=object())
+    srv = LMServer(params, cfg, max_len=16, parallel=ParallelContext(
+        _ShapeOnlyMesh({"data": 2, "model": 2})))
+    with pytest.raises(NotImplementedError, match="A11d"):
+        srv.generate(np.ones((2, 4), np.int32), new_tokens=2)
 
 
 @pytest.mark.parametrize("rag", [False, True])

@@ -273,12 +273,28 @@ def test_moe_drops_the_reference_tokens(arch, models):
     assert (idx.numpy() == np.arange(cfg.moe.top_k)).all()
 
 
+class _ShapeOnlyMesh:
+    def __init__(self, shape):
+        self.shape = shape
+
+
 def test_moe_refuses_a_parallel_context(models):
+    """Expert parallelism runs on the ranks of a DeviceMesh: a context on a
+    shape-only mesh with a `model` axis is refused; one without a `model`
+    axis takes the single-device path (the expert-parallel branch is held
+    in tests/test_torch_parallel_moe.py)."""
+    from repro_torch.parallel import ParallelContext
     cfg, _, tparams = models("qwen2-moe-a2.7b")
-    with pytest.raises(ValueError, match="A11c"):
-        pmoe.apply_moe(tparams.blocks[0]["moe"],
-                       torch.zeros((1, 2, cfg.d_model)), cfg,
-                       parallel=object())
+    p = tparams.blocks[0]["moe"]
+    x = torch.as_tensor(np.random.default_rng(0).normal(
+        size=(2, 4, cfg.d_model)).astype(np.float32))
+    with pytest.raises(ValueError, match="DeviceMesh"):
+        pmoe.apply_moe(p, x, cfg, parallel=ParallelContext(
+            _ShapeOnlyMesh({"data": 1, "model": 2})))
+    y, aux = pmoe.apply_moe(p, x, cfg, parallel=ParallelContext(
+        _ShapeOnlyMesh({"data": 1, "model": 1})))
+    y0, aux0 = pmoe.apply_moe(p, x, cfg)
+    assert torch.equal(y, y0) and torch.equal(aux, aux0)
 
 
 @pytest.mark.parametrize("arch", rc.ARCH_IDS)
