@@ -192,6 +192,24 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
             It prints the seconds of each part and the transport each
             collective used ("nccl", or "gloo-host": CUDA tensors copied
             through host memory under gloo).
+13. dryrun  the dry run (src/repro_torch/launch/dryrun.py) on fake ranks:
+            (a) `python -m repro_torch.launch.dryrun` as a user runs it, in
+                subprocesses, on fake "cuda" tensors of a fake process
+                group of 256 ranks (16, 16) for tinyllama-1.1b x
+                {train_4k, prefill_32k, decode_32k}, qwen2-moe-a2.7b
+                train_4k (2d, expert-parallel) and rwkv6-3b long_500k
+                (tp), and of 512 ranks (2, 16, 16) for kimi-k2-1t-a32b
+                decode_32k; every record must be ok, and each prints its
+                profile, per-device FLOPs, collective bytes, memory and
+                seconds;
+            (b) TinyLlama-1.1B at full width, as [train] takes its step
+                (float32, 8 x 128 tokens, AdamW, remat "none"), in a
+                subprocess: the dry run's record on a one-rank fake mesh
+                against the real step on the card: its FLOPs must equal FlopCounterMode's around
+                the real step and its argument bytes the real parameters',
+                AdamW state's and batch's, exactly; its peak (arguments
+                plus temporaries) is printed beside
+                torch.cuda.max_memory_allocated() of the real step.
 
 The last lines are the kernels' JSON, the card's name and power limit, and
 {"ok": true, "device": {...}}. It needs one card, and exits non-zero without
@@ -292,6 +310,14 @@ MESH_PIPE_STAGES, MESH_PIPE_D, MESH_PIPE_B, MESH_PIPE_MICRO = 4, 2048, 64, 8
 MESH_PIPE_TOL = 1e-5
 MESH_PSUM_SHAPE = (2048, 5632)
 MESH_RANK_TIMEOUT = 300
+# [dryrun] (a): (mesh, arch, shape) cells, each a `python -m
+# repro_torch.launch.dryrun` run; (b): [train]'s batch and sequence
+DRYRUN_CELLS = [("single", "tinyllama-1.1b", "all"),
+                ("single", "qwen2-moe-a2.7b", "train_4k"),
+                ("single", "rwkv6-3b", "long_500k"),
+                ("multi", "kimi-k2-1t-a32b", "decode_32k")]
+DRYRUN_TIMEOUT = 600
+DRYRUN_B, DRYRUN_S = 8, 128
 
 
 # device memory peaks of the run before each phase that resets the counter
@@ -1807,6 +1833,77 @@ def phase_mesh(torch):
     say("mesh", phase_s=round(time.perf_counter() - t_phase, 3))
 
 
+def phase_dryrun(torch):
+    """The dry run on fake ranks, and its record held against the real
+    step on the card."""
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    # (a) the launcher as a user runs it, one process per call
+    tag = "chip-smoke"
+    out_dir = ROOT / "build" / f"dryrun_{tag}"
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    for mesh, arch, shape in DRYRUN_CELLS:
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             arch, "--shape", shape, "--mesh", mesh, "--force", "--tag",
+             tag], cwd=ROOT, env=env, capture_output=True, text=True,
+            timeout=DRYRUN_TIMEOUT)
+        wall = round(time.perf_counter() - t0, 3)
+        if proc.returncode != 0:
+            print(proc.stdout[-4000:], proc.stderr[-4000:], file=sys.stderr)
+            raise RuntimeError(f"[dryrun] {mesh}/{arch}/{shape}: exit "
+                               f"{proc.returncode}")
+        for rec_path in sorted((out_dir / mesh).glob(
+                f"{arch}__{'*' if shape == 'all' else shape}.json")):
+            rec = json.loads(rec_path.read_text())
+            coll = rec.get("collectives", {})
+            say("dryrun", part="cell", mesh=mesh, arch=rec["arch"],
+                shape=rec["shape"], ok=rec["ok"], profile=rec.get("profile"),
+                n_devices=rec.get("n_devices"), flops=rec.get("flops"),
+                traffic_bytes=rec.get("traffic_bytes"),
+                collective_bytes=sum(v for k, v in coll.items()
+                                     if not k.endswith("_count")),
+                collectives=json.dumps(coll), memory=json.dumps(
+                    rec.get("memory")), trace_s=rec.get("trace_s"),
+                total_s=rec["total_s"])
+            if not rec["ok"]:
+                raise RuntimeError(f"[dryrun] {rec['arch']}/{rec['shape']}: "
+                                   f"{rec['error']}")
+        say("dryrun", part="process", mesh=mesh, arch=arch, shape=shape,
+            wall_s=wall)
+
+    # (b) the dry run against the real step on the card, in a process of
+    # its own too (its fake process group must not meet a real one)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-c",
+         "import json; from repro_torch.launch import dryrun; "
+         "print(json.dumps(dryrun.hold_against_real_step("
+         f"'tinyllama-1.1b', batch={DRYRUN_B}, seq={DRYRUN_S})))"],
+        cwd=ROOT, env=env, capture_output=True, text=True,
+        timeout=DRYRUN_TIMEOUT)
+    if proc.returncode != 0:
+        print(proc.stderr[-4000:], file=sys.stderr)
+        raise RuntimeError(f"[dryrun] (b): exit {proc.returncode}")
+    r = json.loads(proc.stdout.strip().splitlines()[-1])
+    say("dryrun", part="against-the-card", arch="tinyllama-1.1b-f32",
+        batch=DRYRUN_B, seq=DRYRUN_S, **r,
+        flops_equal=r["dry_flops"] == r["real_flops"],
+        argument_bytes_equal=(r["dry_argument_bytes"]
+                              == r["real_argument_bytes"]),
+        dry_peak_gib=round(r["dry_peak_bytes"] / 2**30, 3),
+        real_peak_gib=round(r["real_peak_bytes"] / 2**30, 3),
+        peak_ratio_dry_over_real=round(r["dry_peak_bytes"]
+                                       / r["real_peak_bytes"], 4),
+        seconds=round(time.perf_counter() - t0, 3))
+    if (r["dry_flops"] != r["real_flops"]
+            or r["dry_argument_bytes"] != r["real_argument_bytes"]):
+        raise RuntimeError("[dryrun] (b): the dry run's FLOPs or argument "
+                           "bytes differ from the real step's")
+    say("dryrun", phase_s=round(time.perf_counter() - t_phase, 3))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n", type=int, default=1_000_000,
@@ -1860,6 +1957,7 @@ def main() -> int:
     phase_lm(rt, torch, ds, search_out)
     phase_train(torch)
     phase_mesh(torch)
+    phase_dryrun(torch)
     for row in rows:
         if row["name"] == "fused_page_rank":
             row["serve_launches"] = serve_out["launches"]

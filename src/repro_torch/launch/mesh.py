@@ -9,6 +9,10 @@ never touches a process group or a device.
   make_production_mesh  (16, 16) ("data", "model") or (2, 16, 16)
                       ("pod", "data", "model") over the ranks of the
                       default process group, which must have them;
+  init_fake_ranks     a fake default process group of n ranks in this
+                      process (this process is rank 0; collectives move
+                      nothing): what the dry run builds the production
+                      mesh on;
   run_in_processes    `fn(rank, world_size, *args)` in `world_size`
                       processes joined by one process group: the
                       counterpart of the reference's
@@ -59,20 +63,36 @@ def make_local_mesh(axes: Sequence[str] = ("data", "model"),
                             mesh_dim_names=tuple(axes))
 
 
-def make_production_mesh(*, multi_pod: bool = False) -> DeviceMesh:
-    """The dry run's mesh of cards over the default process group's ranks:
-    the first 256 (or 512) of them."""
+def init_fake_ranks(world_size: int) -> None:
+    """Starts a fake default process group of `world_size` ranks in this
+    process, as rank 0 (`torch.testing._internal.distributed.fake_pg`): its
+    collectives return at once and move nothing, so one process can trace
+    a step of a 256- or 512-device mesh on fake tensors. A fake group and a
+    real one cannot share a process; the caller ends it with
+    `torch.distributed.destroy_process_group()`."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    if dist.is_initialized():
+        raise RuntimeError("a process group is already running in this "
+                           "process; the fake ranks need their own")
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=world_size)
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         device=None) -> DeviceMesh:
+    """The dry run's mesh over the default process group's ranks, the first
+    256 (or 512) of them, of cards (default) or of the device type of
+    `device`."""
     shape = (2, 16, 16) if multi_pod else (16, 16)
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
     n = math.prod(shape)
     have = dist.get_world_size() if dist.is_initialized() else 1
     if have < n:
         raise RuntimeError(
-            f"need {n} devices for mesh {shape}, have {have} — the dry-run "
-            f"must start {n} ranks (a fake process group, ROADMAP A11d) "
-            f"before it builds the mesh")
-    return DeviceMesh("cuda", torch.arange(n).reshape(shape),
-                      mesh_dim_names=axes)
+            f"need {n} devices for mesh {shape}, have {have} — start "
+            f"{n} ranks first (init_fake_ranks({n}) for the dry run)")
+    return DeviceMesh(resolve_device(device).type,
+                      torch.arange(n).reshape(shape), mesh_dim_names=axes)
 
 
 def _rank_main(fn, rank, world_size, args, store_path, timeout, results):

@@ -16,6 +16,11 @@ import math
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+from repro_torch.parallel.api import (along_features, block_start, max_over,
+                                      on_shards, sum_over)
+from repro_torch.parallel.opcount import trips
 
 # ---------------------------------------------------------------------------
 # init helpers (the reference's distributions; the stream is torch's)
@@ -36,9 +41,43 @@ def _embed_init(gen, vocab, dim, dtype):
 
 def mm(x, w):
     """x @ w in the promoted dtype of the two (jnp's matmul promotes a
-    float32 operand against bfloat16 weights; torch's refuses the mix)."""
+    float32 operand against bfloat16 weights; torch's refuses the mix).
+    DTensors are laid out first as XLA's partitioner lays out a dot
+    (`_dot_layouts`)."""
     dt = torch.promote_types(x.dtype, w.dtype)
+    if isinstance(x, DTensor) and isinstance(w, DTensor):
+        # each rank's product is its block of the result, or its part of a
+        # sum over the ranks that split the contraction (a partial sum)
+        xpl, wpl = _dot_layouts(x, w)
+        opl = [Partial() if xp == Shard(x.ndim - 1) and wp == Shard(0)
+               else Shard(x.ndim - 1) if wp == Shard(1) else xp
+               for xp, wp in zip(xpl, wpl)]
+        return on_shards(lambda a, b: (a.to(dt) @ b.to(dt),), x.device_mesh,
+                         (x, w), (xpl, wpl), (opl,))[0]
     return x.to(dt) @ w.to(dt)
+
+
+def _dot_layouts(x: DTensor, w: DTensor):
+    """Placements of x (..., D) and a weight w (D, F) for their product,
+    per mesh dim: where x's tokens are split, w is gathered (FSDP); else
+    w split over F keeps x whole (column parallel), w split over D splits
+    x over D (row parallel, a partial sum out), and so does x split over
+    D against a whole w (whose rows each rank slices)."""
+    xd = x.ndim - 1
+    xpl, wpl = list(x.placements), list(w.placements)
+    for i, (xp, wp) in enumerate(zip(xpl, wpl)):
+        tokens = isinstance(xp, Shard) and xp.dim != xd
+        if tokens:
+            wpl[i] = Replicate()
+        elif wp == Shard(1):
+            xpl[i] = Replicate()
+        elif wp == Shard(0):
+            xpl[i] = Shard(xd)
+        elif xp == Shard(xd):
+            wpl[i] = Shard(0)
+        elif xp.is_partial():
+            xpl[i] = Replicate()
+    return xpl, wpl
 
 
 # ---------------------------------------------------------------------------
@@ -61,9 +100,9 @@ def apply_norm(p, x, norm_type, eps=1e-5):
         mean = torch.mean(xf, dim=-1, keepdim=True)
         var = torch.var(xf, dim=-1, keepdim=True, unbiased=False)
         y = (xf - mean) * torch.rsqrt(var + eps)
-    y = y * p["scale"].float()
+    y = y * along_features(p["scale"], y).float()
     if norm_type == "layernorm":
-        y = y + p["bias"].float()
+        y = y + along_features(p["bias"], y).float()
     return y.to(x.dtype)
 
 
@@ -140,15 +179,35 @@ def init_attention(gen, cfg, dtype):
 
 def _split_heads(x, n_heads, head_dim):
     b, s, _ = x.shape
+    if isinstance(x, DTensor):
+        x = _whole_heads(x, 2, n_heads)
     return x.reshape(b, s, n_heads, head_dim)
+
+
+def _whole_heads(x: DTensor, dim: int, n_heads: int) -> DTensor:
+    """`x` with its feature dim `dim` (n_heads x head_dim) gathered on each
+    mesh dim that would split a head: a shard must hold whole heads."""
+    mesh, pl = x.device_mesh, list(x.placements)
+    split = 1
+    for i, p in enumerate(pl):
+        if p == Shard(dim):
+            if n_heads % (split * mesh.size(i)):
+                pl[i] = Replicate()
+            else:
+                split *= mesh.size(i)
+    return x if pl == list(x.placements) else x.redistribute(mesh, pl)
 
 
 def blocked_attention(q, k, v, *, causal, q_offset=0, block=1024):
     """Flash-style streaming-softmax attention, blocked over KV.
 
     q: (B, Sq, H, D); k/v: (B, Skv, KV, D) with H % KV == 0.
-    Returns (B, Sq, H, D).
+    Returns (B, Sq, H, D). DTensors run shard by shard
+    (`_blocked_attention_sharded`).
     """
+    if isinstance(q, DTensor):
+        return _blocked_attention_sharded(q, k, v, causal=causal,
+                                          q_offset=q_offset, block=block)
     b, sq, h, d = q.shape
     skv, kv = k.shape[1], k.shape[2]
     g = h // kv
@@ -167,7 +226,7 @@ def blocked_attention(q, k, v, *, causal, q_offset=0, block=1024):
     m = torch.full((b, kv, g, sq), -torch.inf, dtype=torch.float32,
                    device=dev)
     l = torch.zeros((b, kv, g, sq), dtype=torch.float32, device=dev)
-    for j in range(nblk):
+    for j in trips(nblk):
         kj = k[:, j * block:(j + 1) * block].float()
         vj = v[:, j * block:(j + 1) * block].float()
         kv_pos = j * block + torch.arange(block, device=dev)
@@ -196,8 +255,11 @@ def decode_attention(q, k_cache, v_cache, cur_len):
     """Single-token attention against a KV cache.
 
     q: (B, 1, H, D); caches: (B, Smax, KV, D); cur_len: number of valid
-    cache positions (including the token just written).
+    cache positions (including the token just written). DTensors run shard
+    by shard (`_decode_attention_sharded`).
     """
+    if isinstance(q, DTensor):
+        return _decode_attention_sharded(q, k_cache, v_cache, cur_len)
     b, _, h, d = q.shape
     smax, kv = k_cache.shape[1], k_cache.shape[2]
     g = h // kv
@@ -211,13 +273,115 @@ def decode_attention(q, k_cache, v_cache, cur_len):
     return out.reshape(b, 1, h, d).to(q.dtype)
 
 
+# ---------------------------------------------------------------------------
+# attention on DTensors: each rank runs the plain code on its blocks
+
+
+def _head_placements(x: DTensor, kv: int):
+    """Per mesh dim, how attention splits: "b" (batch), "h" (whole KV
+    groups of heads), "s" (the query sequence) or None, from `x`'s
+    placements (B, S, H, D). A mesh dim that splits the heads but not into
+    whole KV groups splits the sequence instead, where it divides."""
+    mesh = x.device_mesh
+    out, split_h, split_s = [], 1, 1
+    for i, p in enumerate(x.placements):
+        n = mesh.size(i)
+        if p == Shard(0):
+            out.append("b")
+        elif p == Shard(2) and kv % (split_h * n) == 0:
+            split_h *= n
+            out.append("h")
+        elif p in (Shard(1), Shard(2)) and x.shape[1] % (split_s * n) == 0:
+            split_s *= n
+            out.append("s")
+        else:
+            out.append(None)
+    return out
+
+
+_AXIS = {"b": Shard(0), "h": Shard(2), "s": Shard(1), None: Replicate()}
+
+
+def _blocked_attention_sharded(q, k, v, *, causal, q_offset, block):
+    """Each rank attends its queries (its batch, heads and sequence block)
+    to its batch's and heads' whole keys: sequence parallelism gathers the
+    K/V (GQA's small tensors), not the queries."""
+    mesh = q.device_mesh
+    how = _head_placements(q, k.shape[2])
+    qpl = [_AXIS[a] for a in how]
+    kpl = [_AXIS[a if a != "s" else None] for a in how]
+
+    def local(ql, kl, vl):
+        off = q_offset + block_start(mesh, qpl, 1, ql.shape[1])
+        return (blocked_attention(ql, kl, vl, causal=causal, q_offset=off,
+                                  block=block),)
+
+    return on_shards(local, mesh, (q, k, v), (qpl, kpl, kpl), (qpl,))[0]
+
+
+def _decode_attention_sharded(q, k_cache, v_cache, cur_len):
+    """Each rank attends its batch's and heads' query to its block of the
+    cache; where the cache's sequence is split (flash-decoding), the
+    softmax's max, its sum and the weighted values are reduced over the
+    ranks that hold the other blocks."""
+    mesh = k_cache.device_mesh
+    cpl = list(k_cache.placements)
+    seq_dims = [i for i, p in enumerate(cpl) if p == Shard(1)]
+    qpl = [p if p in (Shard(0), Shard(2)) else Replicate() for p in cpl]
+
+    def local(ql, kl, vl):
+        if not seq_dims:
+            return (decode_attention(ql, kl, vl, cur_len),)
+        b, _, h, d = ql.shape
+        n, kv = kl.shape[1], kl.shape[2]
+        qf = ql.reshape(b, kv, h // kv, d).float()
+        s = torch.einsum("bkgd,bckd->bkgc", qf, kl.float()) / math.sqrt(d)
+        pos = block_start(mesh, cpl, 1, n) + torch.arange(n, device=ql.device)
+        mask = (pos < cur_len)[None, None, None]
+        s = torch.where(mask, s, -torch.inf)
+        m = max_over(torch.amax(s, dim=-1), mesh, seq_dims)
+        p = torch.where(mask, torch.exp(s - m[..., None]), 0.0)
+        l = sum_over(torch.sum(p, dim=-1), mesh, seq_dims)
+        o = sum_over(torch.einsum("bkgc,bckd->bkgd", p, vl.float()), mesh,
+                     seq_dims)
+        out = o / l[..., None]
+        return (out.reshape(b, 1, h, d).to(ql.dtype),)
+
+    return on_shards(local, mesh, (q, k_cache, v_cache), (qpl, cpl, cpl),
+                     (qpl,))[0]
+
+
 def write_cache(buf, x, index):
     """`buf` with `x` written in place at sequence position `index` of
     axis 1 (dynamic_update_slice's semantics: the start is clamped so the
     slice fits). The caller passes the returned cache on and never reads
-    the old one again."""
+    the old one again. A DTensor `buf` is written shard by shard: each rank
+    writes the part of `x` that falls in its block of axis 1."""
     start = max(0, min(int(index), buf.shape[1] - x.shape[1]))
+    if isinstance(buf, DTensor):
+        return _write_cache_sharded(buf, x, start)
     buf[:, start:start + x.shape[1]] = x.to(buf.dtype)
+    return buf
+
+
+def _write_cache_sharded(buf, x, start):
+    mesh, pl = buf.device_mesh, tuple(buf.placements)
+    if not isinstance(x, DTensor):
+        x = DTensor.from_local(x, mesh, [Replicate()] * mesh.ndim,
+                               run_check=False)
+    if x.shape[1] == buf.shape[1]:         # the whole cache (prefill)
+        buf.to_local().copy_(x.to(buf.dtype).redistribute(mesh, pl)
+                             .to_local())
+        return buf
+    # x in buf's layout, but whole along axis 1
+    xl = x.to(buf.dtype).redistribute(
+        mesh, [Replicate() if p == Shard(1) else p for p in pl]).to_local()
+    local = buf.to_local()
+    n = local.shape[1]
+    lo = block_start(mesh, pl, 1, n)
+    a, b = max(start, lo), min(start + xl.shape[1], lo + n)
+    if a < b:
+        local[:, a - lo:b - lo] = xl[:, a - start:b - start]
     return buf
 
 
@@ -288,6 +452,42 @@ def apply_mlp(p, x, act):
 
 # ---------------------------------------------------------------------------
 # embeddings
+
+
+def embed(table, tokens):
+    """The rows of `table` (V, D) at `tokens`: `F.embedding`. A DTensor
+    table runs shard by shard: a rank whose block of the vocabulary holds
+    a token gives its row, the others zeros (a partial sum over the ranks
+    that split the vocabulary), and a table split over D where the tokens
+    are split too is gathered first (FSDP)."""
+    if not isinstance(table, DTensor):
+        return F.embedding(tokens, table)
+    mesh = table.device_mesh
+    if not isinstance(tokens, DTensor):
+        tokens = DTensor.from_local(tokens, mesh, [Replicate()] * mesh.ndim,
+                                    run_check=False)
+    tpl, kpl, opl = [], [], []
+    for t, k in zip(table.placements, tokens.placements):
+        if t == Shard(0):                        # vocabulary
+            tpl.append(t), kpl.append(Replicate()), opl.append(Partial())
+        elif k == Shard(0):                      # tokens split: gather
+            tpl.append(Replicate()), kpl.append(k), opl.append(Shard(0))
+        elif t == Shard(1):
+            tpl.append(t), kpl.append(Replicate()), opl.append(Shard(2))
+        else:
+            tpl.append(Replicate()), kpl.append(Replicate())
+            opl.append(Replicate())
+
+    def local(tl, kl):
+        if Shard(0) not in tpl:
+            return (F.embedding(kl, tl),)
+        n = tl.shape[0]
+        idx = kl - block_start(mesh, tpl, 0, n)
+        hit = (idx >= 0) & (idx < n)
+        rows = F.embedding(idx.clamp(0, n - 1), tl)
+        return (rows * hit[..., None].to(rows.dtype),)
+
+    return on_shards(local, mesh, (table, tokens), (tpl, kpl), (opl,))[0]
 
 
 def init_embed(gen, vocab, dim, dtype):

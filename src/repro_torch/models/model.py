@@ -13,9 +13,12 @@ from typing import Any, Dict
 import torch
 from torch import nn
 from torch._subclasses.fake_tensor import FakeTensorMode
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.models.transformer import (Transformer, forward, init_cache,
                                             init_params)
+from repro_torch.parallel.api import (block_start, max_over, on_shards,
+                                      sum_over)
 
 
 def loss_fn(params, cfg, batch, parallel=None, remat_policy="none"):
@@ -26,24 +29,67 @@ def loss_fn(params, cfg, batch, parallel=None, remat_policy="none"):
                   frames=batch.get("frames"),
                   mrope_positions=batch.get("mrope_positions"),
                   parallel=parallel, remat_policy=remat_policy)
-    logits = out["logits"].float()[:, :-1]
-    targets = tokens[:, 1:].long()
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, targets[..., None])[..., 0]
-    ce = (logz - gold).mean()
+    if isinstance(out["logits"], DTensor):
+        ce = _cross_entropy_sharded(out["logits"], tokens)
+    else:
+        logits = out["logits"].float()[:, :-1]
+        targets = tokens[:, 1:].long()
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, targets[..., None])[..., 0]
+        ce = (logz - gold).mean()
     aux = 0.01 * out["aux_loss"]
     return ce + aux, {"ce": ce, "aux": out["aux_loss"]}
 
 
+def _cross_entropy_sharded(logits, tokens):
+    """`loss_fn`'s mean next-token cross-entropy of DTensor logits
+    (B,S,V), each rank on its tokens and its block of the vocabulary: the
+    max, the sum of exponentials and the target's logit are reduced over
+    the ranks that hold the other blocks (no rank holds whole logits),
+    and the per-token losses summed over every rank."""
+    mesh = logits.device_mesh
+    b, s, _ = logits.shape
+    lpl = [Replicate() if p.is_partial() else p for p in logits.placements]
+    logits = logits.redistribute(mesh, lpl)
+    # each position's next token (the last position's is masked out)
+    targets = torch.cat([tokens[:, 1:], tokens[:, :1]], dim=1)
+    tpl = [p if p in (Shard(0), Shard(1)) else Replicate() for p in lpl]
+    vocab = [i for i, p in enumerate(lpl) if p == Shard(2)]
+    split = [i for i, p in enumerate(lpl) if p.is_shard()]
+
+    def local(lg, tg):
+        lg = lg.float()
+        n_v, n_s = lg.shape[-1], lg.shape[1]
+        m = max_over(torch.amax(lg, dim=-1), mesh, vocab)
+        se = sum_over(torch.sum(torch.exp(lg - m[..., None]), dim=-1),
+                      mesh, vocab)
+        idx = tg.long() - block_start(mesh, lpl, 2, n_v)
+        hit = (idx >= 0) & (idx < n_v)
+        gold = torch.gather(lg, -1, idx.clamp(0, n_v - 1)[..., None])[..., 0]
+        gold = sum_over(torch.where(hit, gold, 0.0), mesh, vocab)
+        pos = block_start(mesh, lpl, 1, n_s) + torch.arange(
+            n_s, device=lg.device)
+        ce = torch.where(pos < s - 1, torch.log(se) + m - gold, 0.0)
+        total = sum_over(ce.sum(), mesh,
+                         [i for i in split if i not in vocab])
+        return (total / (b * (s - 1)),)
+
+    return on_shards(local, mesh, (logits, targets), (lpl, tpl),
+                     ([Replicate()] * mesh.ndim,))[0]
+
+
 @torch.no_grad()
 def prefill_step(params, cfg, batch, parallel=None,
-                 cache_dtype=torch.bfloat16):
+                 cache_dtype=torch.bfloat16, cache=None):
     """batch: dict(tokens (B,S) integer tensor, optional frames and
     mrope_positions). Returns (next-token logits (B,V), cache), the
-    attention caches in `cache_dtype` (the reference's bf16 by default)."""
+    attention caches in `cache_dtype` (the reference's bf16 by default).
+    `cache`, zeros of the prompt's length, is the cache to fill (the dry
+    run's is placed on its mesh); by default the step makes it."""
     tokens = batch["tokens"]
     b, s = tokens.shape
-    cache = init_cache(cfg, b, s, dtype=cache_dtype, device=tokens.device)
+    if cache is None:
+        cache = init_cache(cfg, b, s, dtype=cache_dtype, device=tokens.device)
     out = forward(params, cfg, tokens, mode="prefill", cache=cache,
                   frames=batch.get("frames"),
                   mrope_positions=batch.get("mrope_positions"),

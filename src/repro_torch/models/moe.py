@@ -38,6 +38,7 @@ import math
 import torch
 import torch.nn.functional as F
 from torch.distributed.device_mesh import DeviceMesh
+from torch.distributed.tensor import DTensor
 
 from repro_torch.models.layers import _normal, apply_mlp, init_mlp
 from repro_torch.parallel import comm
@@ -199,14 +200,22 @@ def _apply_moe_ep(p, x, cfg, parallel):
                                    ).to(w.dtype)
         return comm.all_gather(w, g, dim)
 
-    x_l = local_tensor(x, mesh, tok_spec)
+    def block(t, spec):
+        """This rank's block of `t` under `spec`, a DTensor laid out so
+        first (the tokens gathered over `model`, the shared experts
+        whole), as the reference's shard_map in_specs lay out its inputs."""
+        if isinstance(t, DTensor):
+            t = parallel.constrain(t, *spec)
+        return local_tensor(t, mesh, spec)
+
+    x_l = block(x, tok_spec)
     x2_l = x_l.reshape(-1, d)
-    wi_l = local_tensor(p["wi"], mesh, wi_spec)
-    wg_l = local_tensor(p["wg"], mesh, wi_spec)
-    wo_l = local_tensor(p["wo"], mesh, wo_spec)
+    wi_l = block(p["wi"], wi_spec)
+    wg_l = block(p["wg"], wi_spec)
+    wo_l = block(p["wo"], wo_spec)
     # router + top_k on LOCAL tokens (hoisting it out of the body would
     # gather the (tokens, E) probs)
-    router = local_tensor(p["router"], mesh, P(None, None))
+    router = block(p["router"], P(None, None))
     gates_l, idx_l, aux_l = router_topk({"router": router}, x2_l, m)
     gates_l = gates_l.to(x2_l.dtype)
     for ax in dp_axes:                     # pmean over the data axes
@@ -225,10 +234,13 @@ def _apply_moe_ep(p, x, cfg, parallel):
     y = _dispatch_local(x2_l, idx_l, gates_l, wi_l, wg_l, wo_l,
                         e_off=e_off, e_loc=e_loc, cap=cap,
                         psum_axes=("model",), mesh=mesh)
-    if m.num_shared_experts:
+    if m.num_shared_experts and not isinstance(x, DTensor):
         names = ("wi", "wg", "wo") if cfg.act == "swiglu" else ("wi", "wo")
-        shared = {k: local_tensor(p["shared"][k], mesh, P(None, None))
-                  for k in names}
+        shared = {k: block(p["shared"][k], P(None, None)) for k in names}
         y = y + apply_mlp(shared, x2_l, cfg.act)
-    return (from_local(y.reshape(x_l.shape), mesh, tok_spec, x.shape),
-            from_local(aux_l, mesh, P(), ()))
+    out = from_local(y.reshape(x_l.shape), mesh, tok_spec, x.shape)
+    if m.num_shared_experts and isinstance(x, DTensor):
+        # as the reference, outside the expert-parallel body: the shared
+        # experts' weights stay laid out by the sharding rules
+        out = out + apply_mlp(p["shared"], x, cfg.act)
+    return out, from_local(aux_l, mesh, P(), ())

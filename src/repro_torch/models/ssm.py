@@ -22,8 +22,12 @@ import math
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import (_dense_init, _normal, apply_norm,
-                                       init_norm)
+from torch.distributed.tensor import DTensor, Replicate, Shard
+
+from repro_torch.models.layers import (_dense_init, _normal, _split_heads,
+                                       apply_norm, init_norm, mm)
+from repro_torch.parallel.api import along_features, on_shards, reduced
+from repro_torch.parallel.opcount import trips, unfold
 
 _LOG_CLIP = 60.0
 
@@ -84,7 +88,7 @@ def _chunked_wkv(r, k, v, w, u, state, chunk):
                                    device=r.device), diagonal=-1)
     S = state
     outs = []
-    for j in range(n):
+    for j in trips(n):
         rj, kj, vj, lwj = rc[:, j], kc[:, j], vc[:, j], lw[:, j]
         cum = torch.cumsum(lwj, dim=1)             # inclusive log-decay prods
         cum = torch.clamp(cum, -_LOG_CLIP, 0.0)
@@ -99,8 +103,52 @@ def _chunked_wkv(r, k, v, w, u, state, chunk):
         outs.append(inter + intra + bonus[..., None] * vj)
         c_last = torch.exp(cum[:, -1])             # (B,H,K)
         S = c_last[..., None] * (S + torch.einsum("bchk,bchv->bhkv", k_t, vj))
-    out = torch.stack(outs, dim=1).reshape(b, s, h, vv)
+    out = torch.stack(unfold(outs, n), dim=1).reshape(b, s, h, vv)
     return out, S
+
+
+def _wkv(rh, kh, vh, wh, u, S, chunk):
+    """The WKV recurrence over (B,S,H,K) inputs from state S (B,H,K,V):
+    the plain recurrence for one token, else the chunked form."""
+    if rh.shape[1] == 1:  # decode step: plain recurrence
+        kv = torch.einsum("bhk,bhv->bhkv", kh[:, 0], vh[:, 0])
+        out = torch.einsum("bhk,bhkv->bhv", rh[:, 0],
+                           S + u[..., None] * kv)
+        S = wh[:, 0][..., None] * S + kv
+        return out[:, None], S
+    return _chunked_wkv(rh, kh, vh, wh, u, S, chunk)
+
+
+def _wkv_sharded(rh, kh, vh, wh, u, S, chunk):
+    """`_wkv` on DTensors, each rank on its batch and heads, or, where the
+    heads do not divide, on its columns of V (the recurrence is linear in
+    v, column by column, as the cache rule splits the state); the
+    sequence is whole on every rank."""
+    mesh, h, vv = rh.device_mesh, rh.shape[2], vh.shape[3]
+    spl_in = S.placements if isinstance(S, DTensor) else [None] * mesh.ndim
+    rpl, vpl, upl, spl = [], [], [], []
+    split_h = split_v = 1
+    for i, (pl, sp) in enumerate(zip(rh.placements, spl_in)):
+        n = mesh.size(i)
+        cut = pl in (Shard(1), Shard(2)) or sp in (Shard(1), Shard(3))
+        if pl == Shard(0):
+            rpl.append(Shard(0)), vpl.append(Shard(0))
+            upl.append(Replicate()), spl.append(Shard(0))
+        elif cut and h % (split_h * n) == 0:
+            split_h *= n
+            rpl.append(Shard(2)), vpl.append(Shard(2))
+            upl.append(Shard(0)), spl.append(Shard(1))
+        elif cut and vv % (split_v * n) == 0:
+            split_v *= n
+            rpl.append(Replicate()), vpl.append(Shard(3))
+            upl.append(Replicate()), spl.append(Shard(3))
+        else:
+            rpl.append(Replicate()), vpl.append(Replicate())
+            upl.append(Replicate()), spl.append(Replicate())
+    return on_shards(lambda r, k, v, w, uu, ss: _wkv(r, k, v, w, uu, ss,
+                                                    chunk),
+                     mesh, (rh, kh, vh, wh, u, S),
+                     (rpl, rpl, vpl, rpl, upl, spl), (vpl, spl))
 
 
 def rwkv6_time_mix(p, x, cfg, state):
@@ -112,36 +160,36 @@ def rwkv6_time_mix(p, x, cfg, state):
              else state["shift"][:, None, :].to(x.dtype))
 
     def mix(mu):
-        return x + (xprev - x) * mu
+        return x + (xprev - x) * along_features(mu, x)
 
-    r = mix(p["mu_r"]) @ p["wr"]
-    k = mix(p["mu_k"]) @ p["wk"]
-    v = mix(p["mu_v"]) @ p["wv"]
-    g = mix(p["mu_g"]) @ p["wg"]
+    r = mm(mix(p["mu_r"]), p["wr"])
+    k = mm(mix(p["mu_k"]), p["wk"])
+    v = mm(mix(p["mu_v"]), p["wv"])
+    g = mm(mix(p["mu_g"]), p["wg"])
     # Finch data-dependent decay
-    dw = torch.tanh(mix(p["mu_w"]) @ p["lora_a"]) @ p["lora_b"]
-    w = torch.exp(-torch.exp(p["w_base"] + dw.float()))     # (B,S,D)
+    dw = mm(torch.tanh(reduced(mm(mix(p["mu_w"]), p["lora_a"]))),
+            p["lora_b"])
+    w = torch.exp(-torch.exp(along_features(p["w_base"], dw)
+                             + dw.float()))                 # (B,S,D)
 
-    rh = r.reshape(b, s, h, hk).float()
-    kh = k.reshape(b, s, h, hk).float()
-    vh = v.reshape(b, s, h, hk).float()
-    wh = w.reshape(b, s, h, hk)
+    rh = _split_heads(r, h, hk).float()
+    kh = _split_heads(k, h, hk).float()
+    vh = _split_heads(v, h, hk).float()
+    wh = _split_heads(w, h, hk)
 
-    if s == 1:  # decode step: plain recurrence
-        S = state["wkv"]
-        kv = torch.einsum("bhk,bhv->bhkv", kh[:, 0], vh[:, 0])
-        out = torch.einsum("bhk,bhkv->bhv", rh[:, 0],
-                           S + p["u"][..., None] * kv)
-        S = wh[:, 0][..., None] * S + kv
-        out = out[:, None]
+    chunk = min(cfg.ssm.chunk_size, s)
+    assert s % chunk == 0, (s, chunk)
+    if isinstance(rh, DTensor):
+        out, S = _wkv_sharded(rh, kh, vh, wh, p["u"], state["wkv"], chunk)
+        # the heads' V columns whole again before they merge into D
+        out = out.redistribute(out.device_mesh, [
+            Replicate() if pl == Shard(3) else pl for pl in out.placements])
     else:
-        chunk = min(cfg.ssm.chunk_size, s)
-        assert s % chunk == 0, (s, chunk)
-        out, S = _chunked_wkv(rh, kh, vh, wh, p["u"], state["wkv"], chunk)
+        out, S = _wkv(rh, kh, vh, wh, p["u"], state["wkv"], chunk)
 
     out = out.reshape(b, s, d).to(x.dtype)
     out = apply_norm(p["ln_x"], out, "layernorm")
-    out = (out * F.silu(g)) @ p["wo"]
+    out = mm(out * F.silu(g), p["wo"])
     return out, {"shift": x[:, -1, :], "wkv": S}
 
 
@@ -149,10 +197,10 @@ def rwkv6_channel_mix(p, x, state):
     """state: shift (B, D)."""
     s = x.shape[1]
     xprev = (_shift(x, state) if s > 1 else state[:, None, :].to(x.dtype))
-    xk = x + (xprev - x) * p["cm_mu_k"]
-    xr = x + (xprev - x) * p["cm_mu_r"]
-    k = torch.square(F.relu(xk @ p["cm_wk"]))
-    out = torch.sigmoid(xr @ p["cm_wr"]) * (k @ p["cm_wv"])
+    xk = x + (xprev - x) * along_features(p["cm_mu_k"], x)
+    xr = x + (xprev - x) * along_features(p["cm_mu_r"], x)
+    k = torch.square(F.relu(mm(xk, p["cm_wk"])))
+    out = torch.sigmoid(mm(xr, p["cm_wr"])) * mm(k, p["cm_wv"])
     return out, x[:, -1, :]
 
 
@@ -210,10 +258,53 @@ def _linear_scan(decay, inc, h0):
     pi = torch.empty_like(inc)
     acc = inc[:, 0]
     pi[:, 0] = acc
-    for t in range(1, inc.shape[1]):
+    for t in trips(inc.shape[1] - 1):
+        t += 1
         acc = decay[:, t] * acc + inc[:, t]
         pi[:, t] = acc
     return pd * h0[:, None] + pi
+
+
+def _selective_scan(dt, b_ssm, c_ssm, xf, a, h, chunk):
+    """The selective scan of dt, x (B,S,Di), B and C (B,S,N) with a
+    (Di,N) from state h (B,Di,N): (y (B,S,Di), last state)."""
+    s = dt.shape[1]
+    if s == 1:
+        decay = torch.exp(dt[:, 0][..., None] * a)             # (B,Di,N)
+        inc = (dt[:, 0] * xf[:, 0])[..., None] * b_ssm[:, 0][:, None, :]
+        h = decay * h + inc
+        return torch.einsum("bdn,bn->bd", h, c_ssm[:, 0])[:, None], h
+    ys = []
+    for j in trips(s // chunk):
+        sl = slice(j * chunk, (j + 1) * chunk)
+        dt_j, b_j, c_j, x_j = dt[:, sl], b_ssm[:, sl], c_ssm[:, sl], \
+            xf[:, sl]
+        decay = torch.exp(dt_j[..., None] * a)              # (B,C,Di,N)
+        inc = (dt_j * x_j)[..., None] * b_j[:, :, None, :]
+        hs = _linear_scan(decay, inc, h)
+        ys.append(torch.einsum("bcdn,bcn->bcd", hs, c_j))
+        h = hs[:, -1]
+    return torch.cat(unfold(ys, s // chunk), dim=1), h
+
+
+def _selective_scan_sharded(dt, b_ssm, c_ssm, xf, a, h, chunk):
+    """`_selective_scan` on DTensors, each rank on its batch and channels,
+    the sequence whole on every rank."""
+    mesh = dt.device_mesh
+    xpl, bpl, apl, hpl = [], [], [], []
+    for pl in dt.placements:
+        if pl == Shard(0):
+            xpl.append(Shard(0)), bpl.append(Shard(0))
+            apl.append(Replicate()), hpl.append(Shard(0))
+        elif pl == Shard(2):
+            xpl.append(Shard(2)), bpl.append(Replicate())
+            apl.append(Shard(0)), hpl.append(Shard(1))
+        else:
+            xpl.append(Replicate()), bpl.append(Replicate())
+            apl.append(Replicate()), hpl.append(Replicate())
+    return on_shards(lambda *t: _selective_scan(*t, chunk), mesh,
+                     (dt, b_ssm, c_ssm, xf, a, h),
+                     (xpl, bpl, bpl, xpl, apl, hpl), (xpl, hpl))
 
 
 def mamba_mix(p, x, cfg, state):
@@ -223,45 +314,33 @@ def mamba_mix(p, x, cfg, state):
     n = cfg.ssm.d_state
     dtr = p["dt_proj"].shape[0]
 
-    xz = x @ p["in_proj"]
+    xz = mm(x, p["in_proj"])
     xh, z = torch.chunk(xz, 2, dim=-1)
-    xh, conv_state = _causal_conv(xh, p["conv_w"], p["conv_b"], state["conv"])
+    xh, conv_state = _causal_conv(xh, along_features(p["conv_w"], xh),
+                                  along_features(p["conv_b"], xh),
+                                  state["conv"])
     xh = F.silu(xh)
 
-    dbc = xh @ p["x_proj"]
-    dt = F.softplus(dbc[..., :dtr].float() @ p["dt_proj"].float()
-                    + p["dt_bias"])
+    dbc = mm(xh, p["x_proj"])
+    dt = reduced(mm(dbc[..., :dtr].float(), p["dt_proj"].float()),
+                 like=p["dt_bias"])
+    dt = F.softplus(dt + along_features(p["dt_bias"], dt))
     b_ssm = dbc[..., dtr:dtr + n].float()
     c_ssm = dbc[..., dtr + n:].float()
     a = -torch.exp(p["a_log"])                                 # (Di,N)
 
     xf = xh.float()
-    if s == 1:
-        h = state["ssm"]
-        decay = torch.exp(dt[:, 0][..., None] * a)             # (B,Di,N)
-        inc = (dt[:, 0] * xf[:, 0])[..., None] * b_ssm[:, 0][:, None, :]
-        h = decay * h + inc
-        y = torch.einsum("bdn,bn->bd", h, c_ssm[:, 0])[:, None]
-        ssm_state = h
+    chunk = min(cfg.ssm.chunk_size, s)
+    assert s % chunk == 0
+    if isinstance(dt, DTensor):
+        y, ssm_state = _selective_scan_sharded(dt, b_ssm, c_ssm, xf, a,
+                                               state["ssm"], chunk)
     else:
-        chunk = min(cfg.ssm.chunk_size, s)
-        assert s % chunk == 0
-        h = state["ssm"]
-        ys = []
-        for j in range(s // chunk):
-            sl = slice(j * chunk, (j + 1) * chunk)
-            dt_j, b_j, c_j, x_j = dt[:, sl], b_ssm[:, sl], c_ssm[:, sl], \
-                xf[:, sl]
-            decay = torch.exp(dt_j[..., None] * a)              # (B,C,Di,N)
-            inc = (dt_j * x_j)[..., None] * b_j[:, :, None, :]
-            hs = _linear_scan(decay, inc, h)
-            ys.append(torch.einsum("bcdn,bcn->bcd", hs, c_j))
-            h = hs[:, -1]
-        ssm_state = h
-        y = torch.cat(ys, dim=1)
+        y, ssm_state = _selective_scan(dt, b_ssm, c_ssm, xf, a,
+                                       state["ssm"], chunk)
 
-    y = y + p["d_skip"] * xf
-    out = (y.to(x.dtype) * F.silu(z)) @ p["out_proj"]
+    y = y + along_features(p["d_skip"], xf) * xf
+    out = mm(y.to(x.dtype) * F.silu(z), p["out_proj"])
     return out, {"conv": conv_state, "ssm": ssm_state}
 
 

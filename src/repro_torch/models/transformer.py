@@ -29,6 +29,7 @@ from typing import Any, Dict, List, Optional
 
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor, Shard
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts,
                                     noop_context_fn)
@@ -146,7 +147,13 @@ class StackedLeaf:
 
     @torch.no_grad()
     def assign(self, value: torch.Tensor) -> None:
-        """Copy `value`, of the leaf's shape, into its parameters."""
+        """Copy `value`, of the leaf's shape, into its parameters (a
+        DTensor laid out first as its stacked parameters are: never split
+        over the stage dim)."""
+        if self.stacked and isinstance(value, DTensor):
+            value = value.redistribute(value.device_mesh, [
+                Shard(q.dim + 1) if isinstance(q, Shard) else q
+                for q in self.params[0].placements])
         for p, v in zip(self.params,
                         value.unbind(0) if self.stacked else (value,)):
             p.copy_(v)
@@ -407,21 +414,16 @@ def forward(params, cfg, tokens, *, mode="train", cache=None, cur_index=None,
     dict(logits, cache, aux_loss). `parallel`, a `ParallelContext` or None,
     lays the activations out tokens-major after the embedding and after
     each block, as the reference does; on a one-device mesh that changes
-    nothing. A mesh of more than one device raises: running the whole
-    model on DTensors comes with the dry run (ROADMAP A11d).
+    nothing. On a larger mesh the parameters, the tokens and the cache are
+    DTensors placed by `parallel.sharding`'s rules (the dry run,
+    `launch.dryrun`), and `cur_index` is a Python int.
     `remat_policy` "full" or "dots" recomputes each block in the backward
     pass, as the reference's `jax.checkpoint` of its stage function does."""
-    if parallel is not None and parallel.size > 1:
-        raise NotImplementedError(
-            f"forward on a mesh of {parallel.size} devices: the model runs "
-            f"on one device, or under a context on a one-device mesh; "
-            f"whole-model DTensor execution comes with the dry run "
-            f"(ROADMAP A11d)")
     b, s = tokens.shape
     dev = tokens.device
     if cur_index is not None:
         cur_index = int(cur_index)
-    x = params["embed"]["table"][tokens]
+    x = L.embed(params["embed"]["table"], tokens)
 
     if cfg.rope_variant == "mrope":
         positions = (mrope_positions if mrope_positions is not None

@@ -17,6 +17,11 @@ placements, one per mesh dim: `Shard(d)` on every mesh dim that tensor dim
 d names, `Replicate()` on the rest. DTensor splits a dim sharded over
 several mesh dims in the mesh's order, major first, so an entry must name
 its axes in the mesh's order, as every rule does; another order raises.
+
+`on_shards` runs plain code on each rank's blocks of DTensors, with
+`sum_over`, `max_over` and `block_start` for the code that needs the
+other ranks: the dry run's model (models/) runs its products, attention,
+scans and loss so.
 """
 from __future__ import annotations
 
@@ -25,7 +30,7 @@ from typing import Any, Dict, Optional, Sequence, Tuple
 
 import torch
 from torch.distributed.device_mesh import DeviceMesh
-from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.distributed.tensor._utils import \
     compute_local_shape_and_global_offset
 
@@ -152,6 +157,120 @@ def distribute(t: torch.Tensor, sharding: NamedSharding,
     dev = torch.device(device if device is not None else mesh.device_type)
     local = local_block(t, mesh, sharding.spec).to(dev).contiguous()
     return from_local(local, mesh, sharding.spec, t.shape)
+
+
+# ---------------------------------------------------------------------------
+# running plain code on DTensors, rank by rank
+
+
+class _ContiguousGrad(torch.autograd.Function):
+    """The identity, whose gradient is made contiguous: a DTensor built
+    back from a local gradient takes the forward tensor's (contiguous)
+    strides, and a later view of it must find them true."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.contiguous()
+
+
+def on_shards(fn, mesh, ins, in_placements, out_placements):
+    """`fn` on this rank's blocks: each input redistributed to its entry
+    of `in_placements` (a plain tensor counts as replicated), `fn` run on
+    the local tensors, and each output made a DTensor placed by its entry
+    of `out_placements` (`Partial()` where each rank holds its part of a
+    sum). Every sharded dim must split evenly. An input whole on a mesh
+    dim that splits another input gets each rank's gradient as a partial
+    sum there."""
+    split = [any(pl[i].is_shard() for pl in in_placements)
+             for i in range(mesh.ndim)]
+    loc = []
+    for x, pl in zip(ins, in_placements):
+        if not isinstance(x, DTensor):
+            x = DTensor.from_local(x, mesh, [Replicate()] * mesh.ndim,
+                                   run_check=False)
+        grad_pl = [Partial() if s and p == Replicate() else p
+                   for s, p in zip(split, pl)]
+        loc.append(_ContiguousGrad.apply(
+            x.redistribute(mesh, pl).to_local(grad_placements=grad_pl)))
+    outs = fn(*loc)
+    return tuple(DTensor.from_local(o.contiguous(), mesh, pl, run_check=False)
+                 for o, pl in zip(outs, out_placements))
+
+
+class _SumOver(torch.autograd.Function):
+    """The sum of a local tensor over the ranks of some mesh dims (an
+    all-reduce); its gradient is the result's, which every rank holds."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, dims):
+        from torch.distributed import _functional_collectives as funcol
+        for i in dims:
+            x = funcol.all_reduce(x, "sum", (mesh, i))
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+def sum_over(x, mesh, dims):
+    """`x` summed over the ranks of the mesh dims `dims`."""
+    return _SumOver.apply(x, mesh, tuple(dims)) if dims else x
+
+
+def max_over(x, mesh, dims):
+    """`x`'s elementwise max over the ranks of the mesh dims `dims` (no
+    gradient)."""
+    from torch.distributed import _functional_collectives as funcol
+    x = x.detach()
+    for i in dims:
+        x = funcol.all_reduce(x, "max", (mesh, i))
+    return x
+
+
+def block_start(mesh, pl, dim: int, n_local: int) -> int:
+    """Where this rank's block of `dim` starts, under placements `pl`
+    (DTensor splits a dim over several mesh dims major first)."""
+    lo = 0
+    for i, p in enumerate(pl):
+        if p == Shard(dim):
+            lo = lo * mesh.size(i) + mesh.get_local_rank(i)
+    return lo * n_local
+
+
+def reduced(x, like=None):
+    """`x` with any partial sum of a DTensor reduced over its ranks, as XLA
+    reduces a dot's partial sums before a nonlinearity: an all-reduce, or,
+    where `like` (a parameter along `x`'s last dim) is split, a
+    reduce-scatter to that split of the last dim. `x` itself otherwise."""
+    if not (isinstance(x, DTensor)
+            and any(p.is_partial() for p in x.placements)):
+        return x
+    split = ([q == Shard(like.ndim - 1) for q in like.placements]
+             if isinstance(like, DTensor) else [False] * len(x.placements))
+    want = [(Shard(x.ndim - 1) if s else Replicate()) if p.is_partial()
+            else p for p, s in zip(x.placements, split)]
+    return x.redistribute(x.device_mesh, want)
+
+
+def along_features(v, x):
+    """`v`, a parameter whose last dim lines up with `x`'s last dim (a norm
+    scale, a bias, a mixing coefficient), laid out as `x`'s last dim: split
+    where it is, whole elsewhere, as XLA gathers such small weights. Left
+    to DTensor's costs, a product with it may move the activation instead
+    (torch 2.11 gathered the batch and split the features 512 ways). `v`
+    itself unless both are DTensors."""
+    if not (isinstance(v, DTensor) and isinstance(x, DTensor)):
+        return v
+    want = tuple(Shard(v.ndim - 1) if p == Shard(x.ndim - 1) else Replicate()
+                 for p in x.placements)
+    if tuple(v.placements) == want:
+        return v
+    return v.redistribute(v.device_mesh, want)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -12,7 +12,9 @@ backend and the tensor's device (`transport`):
   "gloo-host"  a CUDA tensor under gloo is copied to host memory, moved
                there, and copied back to its device. The copies are
                explicit, in every collective here, so that the transport
-               is the same whatever gloo would accept.
+               is the same whatever gloo would accept;
+  "fake"       the dry run's fake ranks (`launch.mesh.init_fake_ranks`):
+               the tensor goes as it is and nothing moves.
 
 Each function is functional: it returns a new tensor and leaves its input
 as it was. float8 tensors move as their uint8 bits (gloo has no float8).
@@ -30,8 +32,8 @@ def transport(group, device) -> str:
     """"nccl", "gloo" or "gloo-host": how a tensor on `device` moves in
     `group` (None: the default group)."""
     backend = dist.get_backend(group)
-    if backend == "nccl":
-        return "nccl"
+    if backend in ("nccl", "fake"):
+        return str(backend)
     if torch.device(device).type == "cuda":
         return "gloo-host"
     return str(backend)
@@ -60,7 +62,14 @@ def all_reduce(t: torch.Tensor, group=None, op: str = "sum"):
 
 def all_gather(t: torch.Tensor, group=None, dim: int = 0):
     """The members' `t`, concatenated along `dim` in group-rank order (a
-    tiled all-gather)."""
+    tiled all-gather). Under autograd its gradient is the reduce-scatter
+    of the result's gradient: each member's block of the sum."""
+    if torch.is_grad_enabled() and t.requires_grad:
+        return _AllGather.apply(t, group, dim)
+    return _all_gather(t, group, dim)
+
+
+def _all_gather(t, group, dim):
     buf, staged = _wire(t, group)
     parts = [torch.empty_like(buf) for _ in range(dist.get_world_size(group))]
     dist.all_gather(parts, buf, group=group)
@@ -68,6 +77,33 @@ def all_gather(t: torch.Tensor, group=None, dim: int = 0):
     if t.dtype in _FLOAT8:
         out = out.view(t.dtype)
     return out.to(t.device) if staged else out
+
+
+def reduce_scatter(t: torch.Tensor, group=None, dim: int = 0):
+    """This member's block, along `dim` in group-rank order, of the sum of
+    the members' `t`."""
+    n = dist.get_world_size(group)
+    if dist.get_backend(group) == "gloo":       # gloo has no reduce-scatter
+        me = dist.get_group_rank(group, dist.get_rank()) \
+            if group is not None else dist.get_rank()
+        return all_reduce(t, group).chunk(n, dim)[me].contiguous()
+    buf, staged = _wire(t.movedim(dim, 0), group)
+    out = torch.empty((buf.shape[0] // n,) + tuple(buf.shape[1:]),
+                      dtype=buf.dtype, device=buf.device)
+    dist.reduce_scatter_tensor(out, buf, group=group)
+    out = out.movedim(0, dim)
+    return out.to(t.device) if staged else out
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return _all_gather(t, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return reduce_scatter(g, ctx.group, ctx.dim), None, None
 
 
 def ring_shift(t: torch.Tensor, group=None):

@@ -6,9 +6,10 @@ functions; the port runs them eagerly under `torch.inference_mode()`, on
 the device of the parameters. Greedy decoding (`temperature <= 0`) is the
 reference's argmax; sampling draws from a `torch.Generator` seeded with
 `seed`, a different stream from the reference's `jax.random` one.
-`parallel`, a `ParallelContext` or None, goes to both steps; the model
-runs under a context on a one-device mesh, and a larger mesh raises in
-`forward` (ROADMAP A11d).
+`parallel`, a `ParallelContext` or None, goes to both steps. The server
+runs on one device or under a context on a one-device mesh: a larger mesh
+raises, since serving on it needs that many real ranks (the dry run traces
+the steps on fake ones, `launch.dryrun`).
 """
 from __future__ import annotations
 
@@ -30,6 +31,11 @@ class LMServer:
                  temperature: float = 0.0, seed: int = 0,
                  frames: Optional[np.ndarray] = None) -> np.ndarray:
         """prompts (B, S) int -> (B, new_tokens) int32 greedy/sampled."""
+        if self.parallel is not None and self.parallel.size > 1:
+            raise NotImplementedError(
+                f"LMServer on a mesh of {self.parallel.size} devices: the "
+                f"server runs on one device or a one-device mesh; serving "
+                f"on a larger one needs {self.parallel.size} real ranks")
         b, s = prompts.shape
         assert s + new_tokens <= self.max_len
         dev, cfg = self.device, self.cfg

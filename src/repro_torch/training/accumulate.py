@@ -12,6 +12,7 @@ accumulated gradient, once per step.
 from __future__ import annotations
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.models.transformer import StackedLeaf
 from repro_torch.training.tree import param_tree, tree_leaves, tree_map
@@ -21,13 +22,21 @@ def _params_of(leaf) -> list:
     return leaf.params if isinstance(leaf, StackedLeaf) else [leaf]
 
 
+def _placed_as(g, t):
+    """The gradient `g` of a DTensor parameter `t` in `t`'s placements
+    (a partial sum is reduce-scattered to the parameter's shards)."""
+    if isinstance(g, DTensor) and tuple(g.placements) != tuple(t.placements):
+        return g.redistribute(t.device_mesh, t.placements)
+    return g
+
+
 def _flat_grads(loss_fn, params, tree, args, kw):
     """((loss, aux), one gradient per tensor of `tree`'s leaves, in the
     leaves' order), all detached."""
     flat = [t for leaf in tree_leaves(tree) for t in _params_of(leaf)]
     loss, aux = loss_fn(params, *args, **kw)
     grads = torch.autograd.grad(loss, flat, allow_unused=True)
-    grads = [torch.zeros_like(t) if g is None else g
+    grads = [torch.zeros_like(t) if g is None else _placed_as(g, t)
              for t, g in zip(flat, grads)]
     aux = tree_map(lambda a: a.detach(), aux)
     return (loss.detach(), aux), grads

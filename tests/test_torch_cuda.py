@@ -632,3 +632,99 @@ def test_gloo_host_transport_round_trips_card_tensors(card, tmp_path):
         np.testing.assert_array_equal(
             g8, np.concatenate([np.full((3, 2), 1.0), np.full((3, 2), 2.0)]))
         np.testing.assert_array_equal(ring, np.full((3, 2), 2.0 - rank))
+
+
+@pytest.mark.parametrize("batch,seq", [(8, 128), (2, 64)])
+def test_dry_run_record_equals_the_real_step_on_the_card(card, batch, seq):
+    """The dry run's record of the tinyllama smoke config's training step
+    (float32, AdamW, remat "none"), traced on fake "cuda" tensors of a
+    one-rank fake mesh, against the real step on the card: its FLOPs equal
+    FlopCounterMode's around the real step, and its argument bytes the
+    real parameters', optimizer state's and batch's, exactly; both peaks
+    are positive."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch import dryrun
+    r = dryrun.hold_against_real_step(
+        "tinyllama-1.1b", cfg=get_smoke_config("tinyllama-1.1b"),
+        batch=batch, seq=seq, device=card)
+    assert r["dry_flops"] == r["real_flops"] > 0
+    assert r["dry_argument_bytes"] == r["real_argument_bytes"] > 0
+    assert r["dry_peak_bytes"] > 0 and r["real_peak_bytes"] > 0
+
+
+def test_dry_run_cell_on_fake_card_tensors(card, tmp_path):
+    """`python -m repro_torch.launch.dryrun` on fake "cuda" tensors of a
+    256-rank fake group: a decode cell's record is ok."""
+    import json
+    import subprocess
+    import sys
+    from pathlib import Path
+    root = Path(__file__).resolve().parent.parent
+    tag = f"cuda-test-{tmp_path.name}"
+    p = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+         "tinyllama-1.1b", "--shape", "decode_32k", "--force", "--tag", tag],
+        cwd=root, env=dict(__import__("os").environ,
+                           PYTHONPATH=str(root / "src")),
+        capture_output=True, text=True, timeout=600)
+    assert p.returncode == 0, p.stdout[-2000:] + p.stderr[-2000:]
+    out = root / "build" / f"dryrun_{tag}"
+    try:
+        rec = json.loads((out / "single" /
+                          "tinyllama-1.1b__decode_32k.json").read_text())
+    finally:
+        import shutil
+        shutil.rmtree(out, ignore_errors=True)
+    assert rec["ok"] and rec["n_devices"] == 256 and rec["flops"] > 0
+
+
+_FOLD_ON_CARD = r"""
+import json, sys
+import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh
+from repro_torch.configs import ShapeConfig, get_smoke_config
+from repro_torch.launch import dryrun
+from repro_torch.launch.mesh import init_fake_ranks
+
+out = {}
+shape = ShapeConfig("t", "train", 64, 8)
+for world, dims in ((1, (1, 1)), (8, (2, 4))):
+    init_fake_ranks(world)
+    mesh = DeviceMesh("cuda", torch.arange(world).reshape(dims),
+                      mesh_dim_names=("data", "model"))
+    for arch in ("tinyllama-1.1b", "rwkv6-3b"):
+        cell = dryrun.build_cell(arch, "t", mesh, device="cuda",
+                                 cfg=get_smoke_config(arch), shape=shape)
+        for fold in (True, False):
+            rec = dryrun.count_step(cell, fold_loops=fold)
+            out[f"{world}/{arch}/{fold}"] = rec["flops"]
+    dist.destroy_process_group()
+print(json.dumps(out))
+"""
+
+
+def test_dry_run_counts_on_fake_card_tensors():
+    """On fake "cuda" tensors (whose backward runs on the card's autograd
+    thread): a folded scan counts the FLOPs of the whole loop, and the
+    tinyllama smoke config's train step under "fsdp" on 8 ranks computes
+    nothing twice (8 x its per-device FLOPs = one device's)."""
+    import json
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: fake \"cuda\" tensors need the "
+                    "CUDA build of torch")
+    root = Path(__file__).resolve().parent.parent
+    p = subprocess.run([sys.executable, "-c", _FOLD_ON_CARD], cwd=root,
+                       env=dict(os.environ, PYTHONPATH=str(root / "src")),
+                       capture_output=True, text=True, timeout=600)
+    assert p.returncode == 0, p.stderr[-3000:]
+    got = json.loads(p.stdout.strip().splitlines()[-1])
+    for world in (1, 8):
+        for arch in ("tinyllama-1.1b", "rwkv6-3b"):
+            assert (got[f"{world}/{arch}/True"]
+                    == got[f"{world}/{arch}/False"]), (world, arch)
+    assert got["8/tinyllama-1.1b/True"] * 8 == got["1/tinyllama-1.1b/True"]

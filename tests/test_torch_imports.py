@@ -26,7 +26,9 @@ def test_import_pulls_in_no_jax_repro_or_triton():
             "repro_torch.training.checkpoint, repro_torch.launch.train, "
             "repro_torch.parallel, repro_torch.parallel.sharding, "
             "repro_torch.parallel.pipeline, repro_torch.parallel.comm, "
-            "repro_torch.launch.mesh; "
+            "repro_torch.launch.mesh, repro_torch.launch.dryrun, "
+            "repro_torch.parallel.hloanalysis, "
+            "repro_torch.parallel.opcount; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro', 'triton')); print(bad)")
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
@@ -51,7 +53,10 @@ def test_import_pulls_in_no_jax_repro_or_triton():
                                     "repro_torch.parallel",
                                     "repro_torch.parallel.sharding",
                                     "repro_torch.parallel.pipeline",
-                                    "repro_torch.launch.mesh"])
+                                    "repro_torch.launch.mesh",
+                                    "repro_torch.launch.dryrun",
+                                    "repro_torch.parallel.hloanalysis",
+                                    "repro_torch.parallel.opcount"])
 def test_subpackage_alone_pulls_in_no_jax_repro_or_triton(module):
     code = (f"import sys, {module}; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "

@@ -64,9 +64,9 @@ class _ShapeOnlyMesh:
 
 def test_server_refuses_a_parallel_context():
     """A context on a mesh of more than one device is refused when the
-    server runs the model: whole-model DTensor execution waits for ROADMAP
-    A11d (the one-device mesh is held in
-    tests/test_torch_parallel_model.py)."""
+    server runs the model: serving on it needs that many real ranks (the
+    one-device mesh is held in tests/test_torch_parallel_model.py; the dry
+    run traces the steps on fake ranks, tests/test_torch_dryrun*.py)."""
     from repro_torch.parallel import ParallelContext
     cfg = get_smoke_config("tinyllama-1.1b")
     params = params_from_reference(
@@ -74,7 +74,7 @@ def test_server_refuses_a_parallel_context():
         "cpu")
     srv = LMServer(params, cfg, max_len=16, parallel=ParallelContext(
         _ShapeOnlyMesh({"data": 2, "model": 2})))
-    with pytest.raises(NotImplementedError, match="A11d"):
+    with pytest.raises(NotImplementedError, match="real ranks"):
         srv.generate(np.ones((2, 4), np.int32), new_tokens=2)
 
 

@@ -20,8 +20,9 @@ from a seed with numpy:
 - `LMServer(parallel=ctx).generate` gives `parallel=None`'s greedy tokens
   and the reference's `LMServer(parallel=ctx)`'s;
 
-and `forward` on a mesh of more than one device raises, naming ROADMAP
-A11d, as `make_production_mesh` does without its 256 ranks.
+and on a mesh of more than one device `forward` runs (the dry run's
+DTensors) while `LMServer` refuses it, and `make_production_mesh` raises
+without its 256 ranks.
 """
 import jax
 import jax.numpy as jnp
@@ -163,10 +164,17 @@ class _ShapeOnly:
 
 
 def test_forward_on_a_larger_mesh_waits_for_the_dry_run(models):
+    """The guard has moved: `forward` on a mesh of more than one device
+    runs the model (on DTensors, tests/test_torch_dryrun*.py), so plain
+    tensors reach `constrain`, which refuses them; `LMServer` still refuses
+    the mesh, and `make_production_mesh` its missing ranks."""
     cfg, _, tparams = models("tinyllama-1.1b")
     big = ParallelContext(_ShapeOnly({"data": 2, "model": 2}))
-    with pytest.raises(NotImplementedError, match="A11d"):
+    with pytest.raises(TypeError, match="needs a DTensor"):
         pmod.loss_fn(tparams, cfg, {"tokens": torch.ones(
             (2, 8), dtype=torch.long)}, parallel=big)
+    with pytest.raises(NotImplementedError, match="real ranks"):
+        LMServer(tparams, cfg, max_len=16, parallel=big).generate(
+            np.ones((2, 4), np.int32), new_tokens=2)
     with pytest.raises(RuntimeError, match="need 256 devices"):
         make_production_mesh()
