@@ -188,13 +188,31 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
                 param_pspecs under the "tp" profile (P("model", None) /
                 P(None, "model")), onto (a)'s mesh and, in the 2
                 processes, onto a (data 1, model 2) mesh: each rank's block
-                equals its slice of the saved array.
+                equals its slice of the saved array;
+            (f) LMServer on a mesh of real ranks: (a)'s TinyLlama-1.1B
+                (f32, the same seeded parameters, drawn in each rank and
+                placed by param_pspecs, each rank keeping its block) serves
+                (a)'s 8 prompts of 16 tokens, 16 new tokens each, in 2
+                processes on (data 1, model 2) under "tp" and in 4 on
+                (data 2, model 2) under "2d" with seq_shard, all sharing
+                the card over gloo. On every rank the greedy tokens must
+                equal (a)'s one-device server's, the prefill logits
+                (prefill_step on the placed batch and cache) (a)'s within
+                rtol 1e-4, atol 1e-5, every parameter block, logit and
+                cache tensor must be on the card, and every collective's
+                transport "gloo-host". It prints the prefill ms, the decode
+                ms per token (generate's seconds less the prefill's, over
+                the new tokens), the seconds of the host copies, each
+                rank's parameter and device bytes, and the smallest top-2
+                logit margin of the greedy picks (a one-device forward
+                over the prompts and (a)'s tokens).
             It prints the seconds of each part and the transport each
             collective used ("nccl", or "gloo-host": CUDA tensors copied
             through host memory under gloo).
 13. dryrun  the dry run (src/repro_torch/launch/dryrun.py) on fake ranks:
-            (a) `python -m repro_torch.launch.dryrun` as a user runs it, in
-                subprocesses, on fake "cuda" tensors of a fake process
+            (a) the launcher's `main`, as `python -m
+                repro_torch.launch.dryrun` runs it, once per cell in one
+                subprocess, on fake "cuda" tensors of a fake process
                 group of 256 ranks (16, 16) for tinyllama-1.1b x
                 {train_4k, prefill_32k, decode_32k}, qwen2-moe-a2.7b
                 train_4k (2d, expert-parallel) and rwkv6-3b long_500k
@@ -310,8 +328,13 @@ MESH_PIPE_STAGES, MESH_PIPE_D, MESH_PIPE_B, MESH_PIPE_MICRO = 4, 2048, 64, 8
 MESH_PIPE_TOL = 1e-5
 MESH_PSUM_SHAPE = (2048, 5632)
 MESH_RANK_TIMEOUT = 300
-# [dryrun] (a): (mesh, arch, shape) cells, each a `python -m
-# repro_torch.launch.dryrun` run; (b): [train]'s batch and sequence
+# (f) the meshes the server runs on (processes, shape, profile), its
+# serving length, and the prefill logits' tolerance
+MESH_SERVE = [(2, (1, 2), "tp"), (4, (2, 2), "2d")]
+MESH_SERVE_MAX_LEN = 64
+MESH_LOGITS_RTOL, MESH_LOGITS_ATOL = 1e-4, 1e-5
+# [dryrun] (a): (mesh, arch, shape) cells, each a call of the launcher's
+# `main`, all in one process; (b): [train]'s batch and sequence
 DRYRUN_CELLS = [("single", "tinyllama-1.1b", "all"),
                 ("single", "qwen2-moe-a2.7b", "train_4k"),
                 ("single", "rwkv6-3b", "long_500k"),
@@ -1716,6 +1739,77 @@ def _mesh_rank4(rank, world):
     return out
 
 
+def _mesh_serve_rank(rank, world, shape, profile, prompts, want_tokens,
+                     want_logits):
+    """[mesh] (f) on this rank: (a)'s model placed on a mesh of `shape`
+    under `profile`, its prefill logits and served tokens against (a)'s."""
+    import torch
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch.configs import get_config
+    from repro_torch.launch.dryrun import seq_shard
+    from repro_torch.models import init_params, prefill_step
+    from repro_torch.parallel import ParallelContext, comm
+    from repro_torch.serving.engine import (LMServer, place_batch, whole,
+                                            zero_cache)
+    _tf32_off(torch)
+    mesh = init_device_mesh("cuda", shape, mesh_dim_names=("data", "model"))
+    cfg = get_config("tinyllama-1.1b")
+    ctx = ParallelContext(mesh, profile=profile, seq_shard=seq_shard(cfg))
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         dtype=torch.float32)
+    srv = LMServer(params, cfg, max_len=MESH_SERVE_MAX_LEN, parallel=ctx)
+    del params
+    torch.cuda.empty_cache()
+    place_s = _sync_s(torch, t0)
+    blocks = [p.to_local() for p in srv.params.parameters()]
+    param_bytes = sum(t.numel() * t.element_size() for t in blocks)
+    comm.reset_host_stats()
+    b, s = prompts.shape
+    with torch.inference_mode(), implicit_replication():
+        t1 = time.perf_counter()
+        batch = place_batch(ctx, cfg, {"tokens": torch.as_tensor(
+            prompts, device="cuda").long()})
+        lg, cache = prefill_step(srv.params, cfg, batch, parallel=ctx,
+                                 cache=zero_cache(ctx, cfg, b, s))
+        logits = whole(lg).float().cpu().numpy()
+        prefill_s = time.perf_counter() - t1
+        tensors = blocks + [lg.to_local()] + [
+            t.to_local() for c in cache for kind in c.values()
+            for t in kind.values()]
+    transports = dict(comm.host_stats["transports"])
+    comm.reset_host_stats()
+    t1 = time.perf_counter()
+    toks = srv.generate(prompts, MESH_NEW)     # returns host memory
+    generate_s = time.perf_counter() - t1
+    stats = dict(comm.host_stats)
+    for k, n in stats["transports"].items():
+        transports[k] = transports.get(k, 0) + n
+    err = float(np.abs(logits - want_logits).max())
+    return {
+        "ok": bool(np.array_equal(toks, want_tokens) and np.allclose(
+            logits, want_logits, rtol=MESH_LOGITS_RTOL,
+            atol=MESH_LOGITS_ATOL) and all(t.is_cuda for t in tensors)
+            and set(transports) == {"gloo-host"}),
+        "tokens_equal": bool(np.array_equal(toks, want_tokens)),
+        "logits_max_abs_err": err, "on_card": all(t.is_cuda
+                                                  for t in tensors),
+        "transports": json.dumps(transports),
+        "prefill_ms": prefill_s * 1e3,
+        # generate's prefill taken as long as the one above
+        "decode_ms_per_token": (generate_s - prefill_s) * 1e3 / MESH_NEW,
+        "host_copy_s": round(stats["seconds"], 4),
+        "host_copies": stats["copies"], "host_copy_mb": round(
+            stats["bytes"] / 1e6, 1),
+        "dtensor_moves": stats["dtensor_moves"],
+        "param_bytes": param_bytes,
+        "device_bytes": torch.cuda.memory_allocated(),
+        "peak_device_bytes": torch.cuda.max_memory_allocated(),
+        "place_s": place_s,
+        "coordinate": json.dumps(mesh.get_coordinate())}
+
+
 def _mesh_leaves(torch, params) -> dict:
     """[mesh] (e)'s checkpoint: the embedding and the first block's
     parameters, as nested dicts keyed as the reference keys them."""
@@ -1738,7 +1832,7 @@ def phase_mesh(torch):
     import torch.distributed as dist
     from repro_torch.configs import get_config
     from repro_torch.launch.mesh import make_local_mesh, run_in_processes
-    from repro_torch.models import init_params, loss_fn
+    from repro_torch.models import forward, init_params, loss_fn, prefill_step
     from repro_torch.parallel import ParallelContext, comm
     from repro_torch.serving.engine import LMServer
     from repro_torch.training import checkpoint as ck
@@ -1779,11 +1873,21 @@ def phase_mesh(torch):
             1, cfg.vocab_size, (MESH_PROMPTS, MESH_PROMPT_LEN),
             generator=torch.Generator().manual_seed(2)).numpy()
         t1 = time.perf_counter()
-        toks = LMServer(params, cfg, max_len=64, parallel=ctx).generate(
-            prompts, new_tokens=MESH_NEW)
+        toks = LMServer(params, cfg, max_len=MESH_SERVE_MAX_LEN,
+                        parallel=ctx).generate(prompts, new_tokens=MESH_NEW)
         serve_s = _sync_s(torch, t1)
-        toks0 = LMServer(params, cfg, max_len=64).generate(
+        toks0 = LMServer(params, cfg, max_len=MESH_SERVE_MAX_LEN).generate(
             prompts, new_tokens=MESH_NEW)
+        with torch.inference_mode():     # (f)'s prefill logits
+            logits0 = prefill_step(params, cfg, {"tokens": torch.as_tensor(
+                prompts, device="cuda").long()})[0].float().cpu().numpy()
+            # the smallest gap between the two largest logits of a greedy
+            # pick: every position's logits over the prompts and the picks
+            seq = torch.as_tensor(np.concatenate([prompts, toks0[:, :-1]],
+                                                 1), device="cuda").long()
+            top = torch.topk(forward(params, cfg, seq)["logits"][
+                :, MESH_PROMPT_LEN - 1:].float(), 2, dim=-1).values
+            margin = float((top[..., 0] - top[..., 1]).min())
         say("mesh", part="one-rank-nccl", arch="tinyllama-1.1b-f32",
             mesh=dict(zip(mesh.mesh_dim_names, mesh.shape)),
             backend=dist.get_backend(), loss=float(loss),
@@ -1828,6 +1932,25 @@ def phase_mesh(torch):
                 if not all(r.get("ok", True) for r in rows):
                     raise RuntimeError(f"[mesh] {part}: {rows}")
             say("mesh", part=f"processes-{world}", wall_s=wall)
+
+        # (f) the LM server on meshes of real ranks sharing the card
+        for world, shape, profile in MESH_SERVE:
+            t0 = time.perf_counter()
+            ranks = run_in_processes(
+                _mesh_serve_rank, world, shape, profile, prompts, toks0,
+                logits0, store_dir=work, timeout=MESH_RANK_TIMEOUT)
+            for r in ranks:
+                say("mesh", part="lm-server", arch="tinyllama-1.1b-f32",
+                    ranks=world, mesh=json.dumps(dict(zip(
+                        ("data", "model"), shape))), profile=profile,
+                    prompts=MESH_PROMPTS, prompt_len=MESH_PROMPT_LEN,
+                    new_tokens=MESH_NEW, min_top2_margin=margin,
+                    nvidia_smi=json.dumps(nvidia_smi()), **r)
+            say("mesh", part=f"lm-server-processes-{world}",
+                wall_s=round(time.perf_counter() - t0, 3))
+            if not all(r["ok"] for r in ranks):
+                raise RuntimeError(f"[mesh] (f) on {shape} under "
+                                   f"{profile}: {ranks}")
     finally:
         shutil.rmtree(work, ignore_errors=True)
     say("mesh", phase_s=round(time.perf_counter() - t_phase, 3))
@@ -1838,25 +1961,31 @@ def phase_dryrun(torch):
     step on the card."""
     t_phase = time.perf_counter()
     torch.cuda.empty_cache()
-    # (a) the launcher as a user runs it, one process per call
+    # (a) the launcher's `main` as `python -m repro_torch.launch.dryrun`
+    # calls it, once per cell, all in one process of its own (its fake
+    # process group must not meet a real one)
     tag = "chip-smoke"
     out_dir = ROOT / "build" / f"dryrun_{tag}"
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    argvs = [["--arch", arch, "--shape", shape, "--mesh", mesh, "--force",
+              "--tag", tag] for mesh, arch, shape in DRYRUN_CELLS]
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-c",
+         "import json, sys; from repro_torch.launch import dryrun\n"
+         "for argv in json.loads(sys.argv[1]): dryrun.main(argv)",
+         json.dumps(argvs)], cwd=ROOT, env=env, capture_output=True,
+        text=True, timeout=DRYRUN_TIMEOUT)
+    wall = round(time.perf_counter() - t0, 3)
+    if proc.returncode != 0:
+        print(proc.stdout[-4000:], proc.stderr[-4000:], file=sys.stderr)
+        raise RuntimeError(f"[dryrun] (a): exit {proc.returncode}")
+    n_cells = 0
     for mesh, arch, shape in DRYRUN_CELLS:
-        t0 = time.perf_counter()
-        proc = subprocess.run(
-            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
-             arch, "--shape", shape, "--mesh", mesh, "--force", "--tag",
-             tag], cwd=ROOT, env=env, capture_output=True, text=True,
-            timeout=DRYRUN_TIMEOUT)
-        wall = round(time.perf_counter() - t0, 3)
-        if proc.returncode != 0:
-            print(proc.stdout[-4000:], proc.stderr[-4000:], file=sys.stderr)
-            raise RuntimeError(f"[dryrun] {mesh}/{arch}/{shape}: exit "
-                               f"{proc.returncode}")
         for rec_path in sorted((out_dir / mesh).glob(
                 f"{arch}__{'*' if shape == 'all' else shape}.json")):
             rec = json.loads(rec_path.read_text())
+            n_cells += 1
             coll = rec.get("collectives", {})
             say("dryrun", part="cell", mesh=mesh, arch=rec["arch"],
                 shape=rec["shape"], ok=rec["ok"], profile=rec.get("profile"),
@@ -1870,8 +1999,7 @@ def phase_dryrun(torch):
             if not rec["ok"]:
                 raise RuntimeError(f"[dryrun] {rec['arch']}/{rec['shape']}: "
                                    f"{rec['error']}")
-        say("dryrun", part="process", mesh=mesh, arch=arch, shape=shape,
-            wall_s=wall)
+    say("dryrun", part="process", cells=n_cells, wall_s=wall)
 
     # (b) the dry run against the real step on the card, in a process of
     # its own too (its fake process group must not meet a real one)

@@ -18,13 +18,21 @@ parameter tree (nested dicts of arrays, stacked over stages, as
 `repro.models.init_params` returns it) and returns the port's
 `Transformer` with the same values, one parameter tree per layer;
 `params_to_reference(model)` restacks them into the reference's tree.
+
+`place_model(model, specs, mesh)` and `place_cache(cfg, cache, specs,
+mesh)` place a `Transformer`'s parameters and a decode cache onto a mesh
+by the sharding rules' trees (`parallel.sharding.param_pspecs`,
+`cache_pspecs`), each rank keeping only its block; the dry run places its
+fake tensors through the same walk.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
+from torch import nn
 
 from repro_torch._device import resolve_device
 from repro_torch.core.engine import DiskIndex, SearchConfig
@@ -32,9 +40,12 @@ from repro_torch.core.memgraph import MemGraph
 from repro_torch.core.pages import PageLayout
 from repro_torch.core.pq import PQ
 from repro_torch.models.transformer import (Transformer, num_blocks,
-                                            reference_tree, stage_len)
+                                            reference_cache, reference_tree,
+                                            stage_len)
 from repro_torch.mutation.mutable_index import (MutableIndex, MutationConfig,
                                                 mutable_state)
+from repro_torch.parallel.api import P, NamedSharding, distribute
+from repro_torch.training.tree import tree_items
 
 
 def _arr(a) -> np.ndarray:
@@ -134,3 +145,68 @@ def params_to_reference(model: Transformer) -> dict:
         v = st.value()
         return (v.float() if v.dtype == torch.bfloat16 else v).cpu().numpy()
     return _tree(reference_tree(model), leaf)
+
+
+# ---------------------------------------------------------------------------
+# placing a model and a cache on a mesh
+
+
+def _spec_at(specs, path):
+    for k in path:
+        specs = specs[k]
+    return specs
+
+
+def _stacked_specs(tree, specs) -> Dict[int, P]:
+    """{id(tensor): spec} for the tensors of a tree of `StackedLeaf`s (the
+    reference's layout), each tensor placed by its leaf's spec, less the
+    stage dim for stacked leaves."""
+    out = {}
+    for path, leaf in tree_items(tree):
+        spec = _spec_at(specs, path)
+        for t in leaf.params:
+            out[id(t)] = P(*spec[1:]) if leaf.stacked else spec
+    return out
+
+
+def _distribute(mesh):
+    def leaf(t, spec):
+        return distribute(t.detach(), NamedSharding(mesh, spec))
+    return leaf
+
+
+def place_model(model: Transformer, specs, mesh,
+                leaf: Optional[Callable] = None) -> Transformer:
+    """`model` with each parameter a DTensor on `mesh` placed by `specs`
+    (`sharding.param_pspecs`' tree): `leaf(tensor, spec)` makes it, by
+    default this rank's block of the tensor copied to the mesh's device
+    (`api.distribute`, no communication; every rank holds `model`
+    whole)."""
+    leaf = leaf or _distribute(mesh)
+    by_id = _stacked_specs(reference_tree(model), specs)
+
+    def tree(module: nn.Module):
+        out: Dict[str, object] = {
+            k: leaf(p, by_id[id(p)])
+            for k, p in module.named_parameters(recurse=False)}
+        for k, child in module.named_children():
+            out[k] = ([tree(c) for c in child]
+                      if isinstance(child, nn.ModuleList) else tree(child))
+        return out
+
+    return Transformer(model.cfg, tree(model))
+
+
+def place_cache(cfg, cache, specs, mesh, leaf: Optional[Callable] = None):
+    """The per-layer decode cache `cache` (as `init_cache` makes it) as
+    DTensors on `mesh` placed by `specs` (`sharding.cache_pspecs`, the
+    reference's stacked tree); `leaf` as in `place_model`."""
+    leaf = leaf or _distribute(mesh)
+    by_id = _stacked_specs(reference_cache(cfg, cache), specs)
+
+    def place(x):
+        if isinstance(x, dict):
+            return {k: place(v) for k, v in x.items()}
+        return leaf(x, by_id[id(x)])
+
+    return [place(c) for c in cache]

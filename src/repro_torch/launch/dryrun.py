@@ -51,7 +51,7 @@ import re
 import time
 import traceback
 from pathlib import Path
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Optional
 
 import torch
 import torch.distributed as dist
@@ -68,18 +68,17 @@ from torch.utils.flop_counter import FlopCounterMode
 from repro_torch._device import resolve_device
 from repro_torch.configs import (ARCH_IDS, ShapeConfig, applicable_shapes,
                                  get_config, get_shape)
+from repro_torch.convert import place_cache, place_model
 from repro_torch.launch.mesh import init_fake_ranks, make_production_mesh
 from repro_torch.launch.train import make_train_step
-from repro_torch.models import (Transformer, abstract_params, decode_step,
-                                init_cache, init_params, input_specs, loss_fn,
-                                prefill_step, reference_tree)
-from repro_torch.models.transformer import reference_cache
+from repro_torch.models import (abstract_params, decode_step, init_cache,
+                                init_params, input_specs, loss_fn,
+                                prefill_step)
 from repro_torch.parallel import sharding as sh
 from repro_torch.parallel.api import P, ParallelContext, from_local, placements
 from repro_torch.parallel.opcount import OpCounter
 from repro_torch.training import optim
 from repro_torch.training.accumulate import value_and_grad
-from repro_torch.training.tree import tree_items
 
 ART_DIR = Path(__file__).resolve().parents[3] / "build" / "dryrun"
 
@@ -165,55 +164,11 @@ def _fake(meta: torch.Tensor, mesh, spec, device,
     return from_local(local, mesh, spec, meta.shape)
 
 
-def _body(spec: P) -> P:
-    """The spec of one tensor of a leaf stacked over stages."""
-    return P(*spec[1:])
-
-
-def _spec_at(specs, path):
-    for k in path:
-        specs = specs[k]
-    return specs
-
-
-def _stacked_specs(tree, specs) -> Dict[int, P]:
-    """{id(tensor): spec} for the tensors of a tree of `StackedLeaf`s (the
-    reference's layout), each tensor placed by its leaf's spec, less the
-    stage dim for stacked leaves."""
-    out = {}
-    for path, leaf in tree_items(tree):
-        spec = _spec_at(specs, path)
-        for t in leaf.params:
-            out[id(t)] = _body(spec) if leaf.stacked else spec
-    return out
-
-
-def _place_model(meta_model: Transformer, specs, mesh, device) -> Transformer:
-    by_id = _stacked_specs(reference_tree(meta_model), specs)
-
-    def tree(module: nn.Module):
-        out: Dict[str, Any] = {
-            k: _fake(p, mesh, by_id[id(p)], device)
-            for k, p in module.named_parameters(recurse=False)}
-        for k, child in module.named_children():
-            out[k] = ([tree(c) for c in child]
-                      if isinstance(child, nn.ModuleList) else tree(child))
-        return out
-
-    return Transformer(meta_model.cfg, tree(meta_model))
-
-
 def _place_cache(cfg, meta_cache, specs, mesh, device, factory=torch.empty):
-    """The per-layer decode cache `meta_cache` as DTensors placed by
+    """The per-layer decode cache `meta_cache` as fake DTensors placed by
     `specs` (`sharding.cache_pspecs`, the reference's stacked tree)."""
-    by_id = _stacked_specs(reference_cache(cfg, meta_cache), specs)
-
-    def place(x):
-        if isinstance(x, dict):
-            return {k: place(v) for k, v in x.items()}
-        return _fake(x, mesh, by_id[id(x)], device, factory)
-
-    return [place(c) for c in meta_cache]
+    return place_cache(cfg, meta_cache, specs, mesh,
+                       lambda t, spec: _fake(t, mesh, spec, device, factory))
 
 
 def _place_tree(tree, specs, mesh, device):
@@ -274,7 +229,8 @@ def build_cell(arch: str, shape_name: str, mesh, *, device=None, cfg=None,
     in_pspec = sh.batch_pspecs(ctx, cfg, specs)
     fake_mode = FakeTensorMode(allow_non_fake_inputs=True)
     with fake_mode:
-        params = _place_model(ameta, pspec, mesh, dev)
+        params = place_model(ameta, pspec, mesh,
+                             lambda t, spec: _fake(t, mesh, spec, dev))
         if shape.mode in ("train", "prefill"):
             batch = {k: _fake(v, mesh, in_pspec[k], dev)
                      for k, v in specs.items()}

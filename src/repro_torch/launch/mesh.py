@@ -26,6 +26,7 @@ from __future__ import annotations
 import math
 import multiprocessing as mp
 import os
+import pickle
 import queue
 import time
 import traceback
@@ -95,8 +96,10 @@ def make_production_mesh(*, multi_pod: bool = False,
                       torch.arange(n).reshape(shape), mesh_dim_names=axes)
 
 
-def _rank_main(fn, rank, world_size, args, store_path, timeout, results):
+def _rank_main(call_path, rank, world_size, store_path, timeout, results):
     try:
+        with open(call_path, "rb") as f:
+            fn, args = pickle.load(f)
         store = dist.FileStore(store_path, world_size)
         dist.init_process_group("gloo", store=store, rank=rank,
                                 world_size=world_size,
@@ -122,10 +125,16 @@ def run_in_processes(fn: Callable, world_size: int, *args: Any,
     TimeoutError raised."""
     store_path = str(Path(store_dir) /
                      f"filestore-{os.getpid()}-{time.monotonic_ns()}")
+    # `fn` and `args` go to the ranks in a file: through spawn's pipe, a
+    # start waits for the previous rank to import its modules once they
+    # outgrow the pipe's buffer
+    call_path = store_path + ".call"
+    with open(call_path, "wb") as f:
+        pickle.dump((fn, args), f)
     ctx = mp.get_context("spawn")
     results = ctx.Queue()
     procs = [ctx.Process(target=_rank_main,
-                         args=(fn, r, world_size, args, store_path,
+                         args=(call_path, r, world_size, store_path,
                                timeout, results), daemon=True)
              for r in range(world_size)]
     for p in procs:
@@ -159,4 +168,5 @@ def run_in_processes(fn: Callable, world_size: int, *args: Any,
             if p.is_alive():
                 p.kill()
             p.join()
+        os.remove(call_path)
     return [out[r] for r in range(world_size)]

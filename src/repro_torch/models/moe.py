@@ -42,7 +42,8 @@ from torch.distributed.tensor import DTensor
 
 from repro_torch.models.layers import _normal, apply_mlp, init_mlp
 from repro_torch.parallel import comm
-from repro_torch.parallel.api import P, from_local, local_tensor
+from repro_torch.parallel.api import (P, from_local, local_tensor,
+                                      sum_grad_over)
 
 
 def init_moe(gen, cfg, dtype):
@@ -178,7 +179,12 @@ def _apply_moe_ep(p, x, cfg, parallel):
             f"context's mesh is {type(mesh).__name__}, a shape only")
     m = cfg.moe
     b, s, d = x.shape
-    e_loc = m.padded_experts // parallel.axis_size("model")
+    ep = parallel.axis_size("model")
+    if m.padded_experts % ep:
+        raise ValueError(f"{m.padded_experts} experts do not split over a "
+                         f"model axis of {ep}: pad them (MoEConfig."
+                         f"ep_pad_to), as the reference's shard_map needs")
+    e_loc = m.padded_experts // ep
     dp_axes = parallel.batch_axes(b)       # axes the batch is sharded over
     if "model" in dp_axes:
         raise ValueError(f"the tokens must be replicated over `model`; the "
@@ -203,10 +209,17 @@ def _apply_moe_ep(p, x, cfg, parallel):
     def block(t, spec):
         """This rank's block of `t` under `spec`, a DTensor laid out so
         first (the tokens gathered over `model`, the shared experts
-        whole), as the reference's shard_map in_specs lay out its inputs."""
+        whole), as the reference's shard_map in_specs lay out its inputs.
+        Where `t` is whole on a batch axis, each rank's gradient is its
+        tokens' part: it is summed over that axis (the transpose of the
+        reference's shard_map sums an input's cotangents so)."""
         if isinstance(t, DTensor):
             t = parallel.constrain(t, *spec)
-        return local_tensor(t, mesh, spec)
+        used = {a for e in spec if e is not None
+                for a in ((e,) if isinstance(e, str) else e)}
+        return sum_grad_over(local_tensor(t, mesh, spec), mesh,
+                             [mesh.mesh_dim_names.index(a) for a in dp_axes
+                              if a not in used])
 
     x_l = block(x, tok_spec)
     x2_l = x_l.reshape(-1, d)
@@ -231,8 +244,14 @@ def _apply_moe_ep(p, x, cfg, parallel):
         wi_l = gather(wi_l, waxes["d_model"], 1)
         wg_l = gather(wg_l, waxes["d_model"], 1)
         wo_l = gather(wo_l, waxes["d_model"], 2)
-    y = _dispatch_local(x2_l, idx_l, gates_l, wi_l, wg_l, wo_l,
-                        e_off=e_off, e_loc=e_loc, cap=cap,
+    # each `model` rank dispatches to its own experts: the gradients of
+    # the tokens and the gates it dispatches are its experts' part, summed
+    # over `model` (the router, the aux loss and the shared experts run
+    # alike on every `model` rank)
+    on_model = [mesh.mesh_dim_names.index("model")]
+    y = _dispatch_local(sum_grad_over(x2_l, mesh, on_model), idx_l,
+                        sum_grad_over(gates_l, mesh, on_model), wi_l, wg_l,
+                        wo_l, e_off=e_off, e_loc=e_loc, cap=cap,
                         psum_axes=("model",), mesh=mesh)
     if m.num_shared_experts and not isinstance(x, DTensor):
         names = ("wi", "wg", "wo") if cfg.act == "swiglu" else ("wi", "wo")

@@ -20,8 +20,19 @@ its axes in the mesh's order, as every rule does; another order raises.
 
 `on_shards` runs plain code on each rank's blocks of DTensors, with
 `sum_over`, `max_over` and `block_start` for the code that needs the
-other ranks: the dry run's model (models/) runs its products, attention,
-scans and loss so.
+other ranks: the model (models/) runs its products, attention, scans and
+loss so, on the dry run's fake ranks and on real ones.
+
+DTensor moves a tensor between placements in `redistribute` (forward and
+backward) and inside its own ops (a norm over split features, a residual
+add of a partial sum, a slice of a split sequence), each time through
+`redistribute_local_tensor`. Importing this module points that function,
+in DTensor's modules, at `_dtensor_move`: under the "gloo-host" transport
+(`comm.transport`: card tensors on ranks that share one card over gloo,
+which moves CUDA tensors only in `broadcast` and `all_reduce`) it makes
+the same move, step for step in DTensor's order, on the local block
+through `comm`'s host copies (`_move_local`); under "nccl", "gloo" (CPU
+tensors) and "fake" it leaves the move to DTensor.
 """
 from __future__ import annotations
 
@@ -31,8 +42,12 @@ from typing import Any, Dict, Optional, Sequence, Tuple
 import torch
 from torch.distributed.device_mesh import DeviceMesh
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor._redistribute import \
+    redistribute_local_tensor as _DTENSOR_MOVE
 from torch.distributed.tensor._utils import \
     compute_local_shape_and_global_offset
+
+from repro_torch.parallel import comm
 
 MESH_AXES = ("pod", "data", "model")
 # params above this count get their expert d_model FSDP-sharded over `pod`
@@ -177,6 +192,20 @@ class _ContiguousGrad(torch.autograd.Function):
         return g.contiguous()
 
 
+def _grad_free(x: DTensor) -> DTensor:
+    """`x`, where gradients are off and it asks for one, as a DTensor of
+    the same block that does not. DTensor's `redistribute` is an autograd
+    Function, which with gradients off detaches in place an output whose
+    input asks for a gradient (a parameter, served under
+    `inference_mode`), and torch 2.11 has no sharding rule for that
+    `detach_` (nor does `inference_mode` allow `x.detach()`)."""
+    if torch.is_grad_enabled() or not x.requires_grad:
+        return x
+    return DTensor.from_local(x.to_local(), x.device_mesh, x.placements,
+                              run_check=False, shape=x.shape,
+                              stride=x.stride())
+
+
 def on_shards(fn, mesh, ins, in_placements, out_placements):
     """`fn` on this rank's blocks: each input redistributed to its entry
     of `in_placements` (a plain tensor counts as replicated), `fn` run on
@@ -195,10 +224,155 @@ def on_shards(fn, mesh, ins, in_placements, out_placements):
         grad_pl = [Partial() if s and p == Replicate() else p
                    for s, p in zip(split, pl)]
         loc.append(_ContiguousGrad.apply(
-            x.redistribute(mesh, pl).to_local(grad_placements=grad_pl)))
+            _grad_free(x).redistribute(mesh, pl).to_local(
+                grad_placements=grad_pl)))
     outs = fn(*loc)
     return tuple(DTensor.from_local(o.contiguous(), mesh, pl, run_check=False)
                  for o, pl in zip(outs, out_placements))
+
+
+def _all_reduce(x, mesh, dims, op):
+    """`x` reduced by `op` over the ranks of each of the mesh dims `dims`,
+    through `comm` under "gloo-host", else a functional collective."""
+    from torch.distributed import _functional_collectives as funcol
+    for i in dims:
+        group = mesh.get_group(i)
+        if comm.transport(group, x.device) == "gloo-host":
+            x = comm.all_reduce(x, group, op)
+        else:
+            x = funcol.all_reduce(x, op, (mesh, i))
+    return x
+
+
+def _chunk_size(n: int, k: int, i: int) -> Tuple[int, int]:
+    """(size, offset) of chunk `i` of `k` of a dim of `n`, as
+    `torch.chunk` cuts it (and DTensor with it)."""
+    full = -(-n // k)
+    lo = min(n, full * i)
+    return max(0, min(n, lo + full) - lo), lo
+
+
+def _move_local(local, mesh, src, dst, shape):
+    """This rank's block of a tensor of global `shape` placed `src` on
+    `mesh`, moved to the placements `dst` (DTensor's greedy plan, through
+    `comm`)."""
+    for a, b in zip(src, dst):
+        for p in (a, b):
+            if type(p) not in (Shard, Replicate, Partial):
+                raise NotImplementedError(f"no block move of a {p}")
+    if src == dst:
+        return local
+    coord = mesh.get_coordinate()
+    # the logical shape each mesh dim splits: the whole, less the splits
+    # of the mesh dims before it
+    logical = [list(shape)]
+    for i, p in enumerate(src[:-1]):
+        cur = list(logical[i])
+        if isinstance(p, Shard):
+            cur[p.dim] = _chunk_size(cur[p.dim], mesh.size(i), coord[i])[0]
+        logical.append(cur)
+    steps = []
+    cur = list(src)
+    if any(isinstance(p, Shard) and mesh.size(i) > 1
+           for i, p in enumerate(src)):
+        # inner mesh dims first, a nested split gathered before it is cut
+        # again (DTensor's greedy plan)
+        for i in reversed(range(len(cur))):
+            tgt = dst[i]
+            if isinstance(tgt, Shard):
+                before = [j for j in range(i) if cur[j] == Shard(tgt.dim)]
+                after = [j for j in range(i) if dst[j] == Shard(tgt.dim)]
+                if before != after:
+                    tgt = Replicate()
+            if cur[i] != tgt:
+                steps.append((i, cur[i], tgt))
+                cur[i] = tgt
+    for i in range(len(cur)):
+        if cur[i] != dst[i]:
+            steps.append((i, cur[i], dst[i]))
+            cur[i] = dst[i]
+    for i, a, b in steps:
+        n = mesh.size(i)
+        if n == 1:
+            continue
+        group = mesh.get_group(i)
+        if b.is_partial():
+            # a replicated value as partial values (DTensor's dispatcher
+            # does this before some ops): each rank's share of the sum
+            if not isinstance(a, Replicate):
+                raise ValueError(f"no move from {a} to {b}")
+            local = local / n if b.reduce_op == "sum" else local
+        elif a.is_partial():
+            op = "sum" if a.reduce_op == "avg" else a.reduce_op
+            if isinstance(b, Replicate):
+                local = comm.all_reduce(local, group, op)
+            elif op == "sum":
+                local = _reduce_scatter(local, group, b.dim, n, coord[i])
+            else:
+                local = _split(comm.all_reduce(local, group, op), b.dim, n,
+                               coord[i])
+            if a.reduce_op == "avg":
+                local = local / n
+        elif isinstance(b, Replicate):
+            local = _gather(local, group, a.dim, logical[i][a.dim], n)
+        else:
+            if isinstance(a, Shard):
+                local = _gather(local, group, a.dim, logical[i][a.dim], n)
+            local = _split(local, b.dim, n, coord[i])
+    return local
+
+
+def _split(local, dim, n, me):
+    """Chunk `me` of `n` of `local` along `dim`, as a new tensor."""
+    size, lo = _chunk_size(local.shape[dim], n, me)
+    return local.narrow(dim, lo, size).clone(
+        memory_format=torch.contiguous_format)
+
+
+def _gather(local, group, dim, n_dim, n):
+    """The whole of a dim of `n_dim` split `n` ways, from each member's
+    chunk (padded to the largest for the collective)."""
+    full = -(-n_dim // n)
+    pad = full - local.shape[dim]
+    if pad:
+        local = torch.cat([local, local.new_zeros(
+            local.shape[:dim] + (pad,) + local.shape[dim + 1:])], dim)
+    out = comm._all_gather(local, group, dim)
+    return out.narrow(dim, 0, n_dim) if full * n != n_dim else out
+
+
+def _reduce_scatter(local, group, dim, n, me):
+    """This member's chunk of `dim` of the sum of the members' `local`."""
+    n_dim = local.shape[dim]
+    full = -(-n_dim // n)
+    if full * n != n_dim:
+        local = torch.cat([local, local.new_zeros(
+            local.shape[:dim] + (full * n - n_dim,) + local.shape[dim + 1:])],
+            dim)
+    out = comm.reduce_scatter(local, group, dim)
+    return out.narrow(dim, 0, _chunk_size(n_dim, n, me)[0])
+
+
+def _dtensor_move(local, current_spec, target_spec, *args, **kwargs):
+    """DTensor's move of a local block (in `redistribute`, its backward,
+    and before an op whose inputs are placed otherwise than the op needs):
+    through `_move_local` under "gloo-host", where DTensor's collectives
+    cannot move card tensors, DTensor's own otherwise."""
+    mesh = current_spec.mesh
+    if comm.transport(mesh.get_group(0), local.device) == "gloo-host":
+        comm.host_stats["dtensor_moves"] += 1
+        return _move_local(local, mesh, tuple(current_spec.placements),
+                           tuple(target_spec.placements), current_spec.shape)
+    return _DTENSOR_MOVE(local, current_spec, target_spec, *args, **kwargs)
+
+
+def _route_dtensor_moves():
+    """Points DTensor's modules that move local blocks at `_dtensor_move`
+    (once per process)."""
+    from torch.distributed.tensor import _api, _dispatch, _redistribute
+    for module in (_api, _dispatch, _redistribute):
+        if module.redistribute_local_tensor is _DTENSOR_MOVE:
+            module.redistribute_local_tensor = _dtensor_move
 
 
 class _SumOver(torch.autograd.Function):
@@ -207,10 +381,7 @@ class _SumOver(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, mesh, dims):
-        from torch.distributed import _functional_collectives as funcol
-        for i in dims:
-            x = funcol.all_reduce(x, "sum", (mesh, i))
-        return x
+        return _all_reduce(x, mesh, dims, "sum")
 
     @staticmethod
     def backward(ctx, g):
@@ -222,14 +393,34 @@ def sum_over(x, mesh, dims):
     return _SumOver.apply(x, mesh, tuple(dims)) if dims else x
 
 
+class _SumGradOver(torch.autograd.Function):
+    """The identity, whose gradient is summed over the ranks of some mesh
+    dims."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, dims):
+        ctx.mesh, ctx.dims = mesh, dims
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g, ctx.mesh, ctx.dims, "sum"), None, None
+
+
+def sum_grad_over(x, mesh, dims):
+    """`x`, whose gradient is summed over the ranks of the mesh dims
+    `dims`: where each rank's gradient of a tensor they all hold is its
+    part of the whole (its tokens', its experts')."""
+    dims = tuple(i for i in dims if mesh.size(i) > 1)
+    if not dims or not torch.is_grad_enabled() or not x.requires_grad:
+        return x
+    return _SumGradOver.apply(x, mesh, dims)
+
+
 def max_over(x, mesh, dims):
     """`x`'s elementwise max over the ranks of the mesh dims `dims` (no
     gradient)."""
-    from torch.distributed import _functional_collectives as funcol
-    x = x.detach()
-    for i in dims:
-        x = funcol.all_reduce(x, "max", (mesh, i))
-    return x
+    return _all_reduce(x.detach(), mesh, dims, "max")
 
 
 def block_start(mesh, pl, dim: int, n_local: int) -> int:
@@ -270,7 +461,7 @@ def along_features(v, x):
                  for p in x.placements)
     if tuple(v.placements) == want:
         return v
-    return v.redistribute(v.device_mesh, want)
+    return _grad_free(v).redistribute(v.device_mesh, want)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -375,7 +566,8 @@ class ParallelContext:
             raise TypeError(
                 f"constrain on a mesh of {self.size} devices needs a "
                 f"DTensor, not a {type(x).__name__}")
-        return x.redistribute(self.mesh, placements(self.mesh, spec))
+        return _grad_free(x).redistribute(self.mesh,
+                                          placements(self.mesh, spec))
 
     def constrain_tokens_major(self, x, batch: int):
         """Activation layout between blocks: batch -> (pod, data); under the
@@ -398,3 +590,6 @@ class ParallelContext:
             return self.constrain(x, dp if dp else None, seq_ax, None)
         return self.constrain(x, dp if dp else None,
                               *([None] * (x.ndim - 1)))
+
+
+_route_dtensor_moves()

@@ -18,14 +18,46 @@ backend and the tensor's device (`transport`):
 
 Each function is functional: it returns a new tensor and leaves its input
 as it was. float8 tensors move as their uint8 bits (gloo has no float8).
+
+`host_stats` counts the "gloo-host" copies of this process (copies, bytes
+and the seconds they took, each copy synchronised), the transports its
+collectives took, and the moves of DTensors (in `redistribute` and inside
+DTensor's ops) that went through them (`api._dtensor_move`); `reset_host_stats` sets it to zero.
 """
 from __future__ import annotations
+
+import time
 
 import torch
 import torch.distributed as dist
 
-_OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
+_OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX,
+        "min": dist.ReduceOp.MIN}
 _FLOAT8 = (torch.float8_e4m3fn, torch.float8_e5m2)
+
+host_stats: dict = {}
+
+
+def reset_host_stats() -> None:
+    host_stats.update(copies=0, bytes=0, seconds=0.0, transports={},
+                      dtensor_moves=0)
+
+
+reset_host_stats()
+
+
+def _host_copy(t: torch.Tensor, device) -> torch.Tensor:
+    """A copy of `t` on `device` (host memory or the card), timed into
+    `host_stats`."""
+    t0 = time.perf_counter()
+    out = t.to(device, copy=True)
+    if out.device.type == "cuda" or t.device.type == "cuda":
+        torch.cuda.synchronize(out.device if out.device.type == "cuda"
+                               else t.device)
+    host_stats["copies"] += 1
+    host_stats["bytes"] += t.numel() * t.element_size()
+    host_stats["seconds"] += time.perf_counter() - t0
+    return out
 
 
 def transport(group, device) -> str:
@@ -44,20 +76,49 @@ def _wire(t: torch.Tensor, group):
     t = t.contiguous()
     if t.dtype in _FLOAT8:
         t = t.view(torch.uint8)
-    if transport(group, t.device) == "gloo-host":
-        return t.cpu(), True
+    how = transport(group, t.device)
+    seen = host_stats["transports"]
+    seen[how] = seen.get(how, 0) + 1
+    if how == "gloo-host":
+        return _host_copy(t, "cpu"), True
     return t, False
 
 
+def _back(out: torch.Tensor, like: torch.Tensor, staged: bool):
+    """`out`, the backend's result, on `like`'s device and in its dtype
+    (float8 bits viewed back)."""
+    if like.dtype in _FLOAT8:
+        out = out.view(like.dtype)
+    return _host_copy(out, like.device) if staged else out
+
+
 def all_reduce(t: torch.Tensor, group=None, op: str = "sum"):
-    """The elementwise `op` ("sum" or "max") of `t` over `group`."""
+    """The elementwise `op` ("sum", "max" or "min") of `t` over `group`.
+    Under autograd (a sum) its gradient is the result's, which every
+    member holds whole: each member's part gets it as it is."""
+    if op == "sum" and torch.is_grad_enabled() and t.requires_grad:
+        return _AllReduce.apply(t, group)
+    return _all_reduce(t, group, op)
+
+
+class _AllReduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group):
+        return _all_reduce(t, group, "sum")
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def _all_reduce(t: torch.Tensor, group, op: str):
     if t.dtype in _FLOAT8:
         raise TypeError("all_reduce of float8 bits would add the bits")
     buf, staged = _wire(t, group)
     if not staged:                  # the backend reduces in place
         buf = buf.clone()
     dist.all_reduce(buf, op=_OPS[op], group=group)
-    return buf.to(t.device) if staged else buf
+    return _back(buf, t, staged)
 
 
 def all_gather(t: torch.Tensor, group=None, dim: int = 0):
@@ -73,10 +134,7 @@ def _all_gather(t, group, dim):
     buf, staged = _wire(t, group)
     parts = [torch.empty_like(buf) for _ in range(dist.get_world_size(group))]
     dist.all_gather(parts, buf, group=group)
-    out = torch.cat(parts, dim=dim)
-    if t.dtype in _FLOAT8:
-        out = out.view(t.dtype)
-    return out.to(t.device) if staged else out
+    return _back(torch.cat(parts, dim=dim), t, staged)
 
 
 def reduce_scatter(t: torch.Tensor, group=None, dim: int = 0):
@@ -91,8 +149,7 @@ def reduce_scatter(t: torch.Tensor, group=None, dim: int = 0):
     out = torch.empty((buf.shape[0] // n,) + tuple(buf.shape[1:]),
                       dtype=buf.dtype, device=buf.device)
     dist.reduce_scatter_tensor(out, buf, group=group)
-    out = out.movedim(0, dim)
-    return out.to(t.device) if staged else out
+    return _back(out.movedim(0, dim), t, staged)
 
 
 class _AllGather(torch.autograd.Function):
@@ -125,6 +182,4 @@ def ring_shift(t: torch.Tensor, group=None):
             dist.P2POp(dist.isend, send, nxt, group=group),
             dist.P2POp(dist.irecv, recv, prv, group=group)]):
         req.wait()
-    if t.dtype in _FLOAT8:
-        recv = recv.view(t.dtype)
-    return recv.to(t.device) if staged else recv
+    return _back(recv, t, staged)

@@ -161,34 +161,38 @@ def batch_pspecs(ctx: ParallelContext, cfg, specs: Dict[str, Any]):
 def cache_pspecs(ctx: ParallelContext, cfg, abstract_cache):
     """KV/SSM state shardings of the reference's cache tree, stacked over
     stages (leading dim): `abstract_cache` is the port's per-layer list, as
-    `init_cache` makes it."""
+    `init_cache` makes it. Where the batch is split over `model` too (the
+    fsdp profile's batch over (data, model)), no other dim is: the
+    reference's rule would name `model` twice, a spec no mesh can place
+    (none of its callers places a cache so)."""
     def rule(path, leaf):
         shape = tuple(leaf.shape)  # (ns, B, ...)
         name = path.split("/")[-1]
         parent = path.split("/")[-2] if "/" in path else ""
         dp = ctx.dp_spec(shape[1])
+
+        def on_model(dim):
+            return "model" not in (dp or ()) and ctx.divides(dim, "model")
+
         if parent in ("kv", "xkv"):            # (ns, B, S, KV, hd)
             kvh, s = shape[3], shape[2]
-            if ctx.divides(kvh, "model") and ctx.has_axis("model"):
+            if on_model(kvh) and ctx.has_axis("model"):
                 return P(None, dp, None, "model", None)
-            if ctx.divides(s, "model"):
+            if on_model(s):
                 return P(None, dp, "model", None, None)
             return P(None, dp, None, None, None)
         if name == "wkv":                       # (ns, B, H, K, V)
-            if ctx.divides(shape[2], "model") and ctx.has_axis("model"):
+            if on_model(shape[2]) and ctx.has_axis("model"):
                 return P(None, dp, "model", None, None)
-            if ctx.divides(shape[4], "model"):
+            if on_model(shape[4]):
                 return P(None, dp, None, None, "model")
             return P(None, dp, None, None, None)
         if name in ("shift_tm", "shift_cm"):    # (ns, B, D)
-            ax = "model" if ctx.divides(shape[2], "model") else None
-            return P(None, dp, ax)
+            return P(None, dp, "model" if on_model(shape[2]) else None)
         if name == "conv":                      # (ns, B, K-1, Di)
-            ax = "model" if ctx.divides(shape[3], "model") else None
-            return P(None, dp, None, ax)
+            return P(None, dp, None, "model" if on_model(shape[3]) else None)
         if name == "ssm":                       # (ns, B, Di, N)
-            ax = "model" if ctx.divides(shape[2], "model") else None
-            return P(None, dp, ax, None)
+            return P(None, dp, "model" if on_model(shape[2]) else None, None)
         return P(*([None] * len(shape)))
 
     return _map_with_path(rule, reference_cache(cfg, abstract_cache))

@@ -728,3 +728,161 @@ def test_dry_run_counts_on_fake_card_tensors():
             assert (got[f"{world}/{arch}/True"]
                     == got[f"{world}/{arch}/False"]), (world, arch)
     assert got["8/tinyllama-1.1b/True"] * 8 == got["1/tinyllama-1.1b/True"]
+
+
+# ---------------------------------------------------------------------------
+# serving, moves and gradients on ranks that share the card
+
+
+def _serve_rank(rank, world, arch):
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import init_params
+    from repro_torch.parallel import ParallelContext, comm
+    from repro_torch.serving.engine import LMServer
+    _tf32_off()
+    mesh = init_device_mesh("cuda", (1, world),
+                            mesh_dim_names=("data", "model"))
+    cfg = get_smoke_config(arch)
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         dtype=torch.float32)
+    prompts = np.random.default_rng(1).integers(
+        1, cfg.vocab_size, (4, 8)).astype(np.int32)
+    one = LMServer(params, cfg, max_len=16).generate(prompts, 6)
+    comm.reset_host_stats()
+    srv = LMServer(params, cfg, max_len=16,
+                   parallel=ParallelContext(mesh, profile="tp"))
+    got = srv.generate(prompts, 6)
+    on_card = all(p.to_local().is_cuda for p in srv.params.parameters())
+    return got, one, on_card, sorted(comm.host_stats["transports"])
+
+
+@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "rwkv6-3b",
+                                  "qwen2-moe-a2.7b"])
+def test_lm_server_on_two_ranks_sharing_the_card(card, tmp_path, arch):
+    """`LMServer` on a (data 1, model 2) mesh of 2 processes that share the
+    card over gloo gives the one-device server's greedy tokens; its
+    parameters' blocks stay on the card, and every collective goes
+    through host memory ("gloo-host")."""
+    from repro_torch.launch.mesh import run_in_processes
+    for got, one, on_card, how in run_in_processes(
+            _serve_rank, 2, arch, store_dir=tmp_path, timeout=RANK_TIMEOUT):
+        np.testing.assert_array_equal(got, one)
+        assert on_card and how == ["gloo-host"], (on_card, how)
+
+
+def _moves_rank(rank, world):
+    """Every pair of placements of card tensors through `redistribute`
+    (the block path under "gloo-host"), beside DTensor's own redistribute
+    of the same tensors on the CPU."""
+    import itertools
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import (DTensor, Partial, Replicate, Shard,
+                                          distribute_tensor)
+    from repro_torch.parallel import comm
+    opts = (Shard(0), Shard(1), Replicate(), Partial())
+    meshes = {d: init_device_mesh(d, (2, 2), mesh_dim_names=("data",
+                                                              "model"))
+              for d in ("cuda", "cpu")}
+    gen = torch.Generator().manual_seed(0)
+    full, gfull = torch.randn((8, 5), generator=gen), torch.randn(
+        (8, 5), generator=gen)
+
+    def make(t, pl, scale, dev):
+        x = distribute_tensor(t.to(dev), meshes[dev], [
+            Replicate() if p.is_partial() else p for p in pl])
+        if any(p.is_partial() for p in pl):
+            x = DTensor.from_local(x.to_local() * (1 + scale * rank),
+                                   meshes[dev], pl, run_check=False,
+                                   shape=t.shape, stride=t.stride())
+        return x
+
+    bad = []
+    for src in itertools.product(opts, repeat=2):
+        for dst in itertools.product(opts, repeat=2):
+            if any(b.is_partial() and not a.is_partial()
+                   for a, b in zip(src, dst)):
+                continue                   # refused (the CPU tests)
+            res = []
+            for dev in ("cuda", "cpu"):
+                x = make(full, src, 0.37, dev).detach().requires_grad_(True)
+                moves = comm.host_stats["dtensor_moves"]
+                y = x.redistribute(meshes[dev], dst)
+                y.backward(make(gfull, dst, 0.11, dev))
+                # the card's moves go through the block path, the CPU's not
+                routed = comm.host_stats["dtensor_moves"] > moves
+                res.append((y.to_local().detach().cpu(), x.grad.to_local()
+                            .cpu(), y.to_local().is_cuda == (dev == "cuda")
+                            and ((routed or src == dst) if dev == "cuda"
+                                 else not routed)))
+            (y, g, ok), (y0, g0, ok0) = res
+            if not (ok and ok0 and torch.equal(y, y0) and torch.equal(g, g0)):
+                bad.append((str(src), str(dst)))
+    return bad
+
+
+def test_block_redistribute_of_card_tensors_equals_the_cpus(card, tmp_path):
+    """On a (2, 2) mesh of 4 processes sharing the card: DTensor's
+    `redistribute` of card tensors (through `api._dtensor_move`, the
+    "gloo-host" block path) gives, for every pair of
+    placements of {Shard(0), Shard(1), Replicate, Partial}, the bits of
+    DTensor's own redistribute of the same tensors on the CPU, forward and
+    backward, on a shape whose dim 1 splits unevenly."""
+    from repro_torch.launch.mesh import run_in_processes
+    for bad in run_in_processes(_moves_rank, 4, store_dir=tmp_path,
+                                timeout=RANK_TIMEOUT):
+        assert bad == []
+
+
+def _grads_rank(rank, world, arch):
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.convert import place_model
+    from repro_torch.models import init_params, loss_fn
+    from repro_torch.parallel import ParallelContext, comm
+    from repro_torch.parallel import sharding as sh
+    from repro_torch.serving.engine import place_batch, whole
+    from repro_torch.training.accumulate import value_and_grad
+    from repro_torch.training.tree import tree_items
+    _tf32_off()
+    mesh = init_device_mesh("cuda", (1, world),
+                            mesh_dim_names=("data", "model"))
+    cfg = get_smoke_config(arch)
+    model = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                        dtype=torch.float32)
+    tokens = torch.randint(1, cfg.vocab_size, (2, 16), device="cuda",
+                           generator=torch.Generator(device="cuda")
+                           .manual_seed(1))
+    (loss0, _), grads0 = value_and_grad(
+        lambda p, b: loss_fn(p, cfg, b), model, {"tokens": tokens})
+    ctx = ParallelContext(mesh, profile="2d")
+    comm.reset_host_stats()
+    placed = place_model(model, sh.param_pspecs(ctx, cfg, model), mesh)
+    with implicit_replication():
+        (loss, _), grads = value_and_grad(
+            lambda p, b: loss_fn(p, cfg, b, parallel=ctx), placed,
+            place_batch(ctx, cfg, {"tokens": tokens}))
+        want = dict(tree_items(grads0))
+        worst = max(float(((whole(g) - want[path]).abs()
+                           / (GRAD_ATOL + GRAD_RTOL * want[path].abs()))
+                          .max()) for path, g in tree_items(grads))
+        return (float(whole(loss)), float(loss0), worst,
+                sorted(comm.host_stats["transports"]))
+
+
+GRAD_RTOL, GRAD_ATOL, LOSS_RTOL = 2e-4, 2e-5, 1e-5
+
+
+@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "qwen2-moe-a2.7b"])
+def test_loss_and_gradients_on_two_ranks_sharing_the_card(card, tmp_path,
+                                                          arch):
+    """`loss_fn` and its gradients on a (data 1, model 2) mesh under "2d",
+    2 processes sharing the card, equal one device's within
+    tests/test_torch_train_grads.py's tolerances (loss rtol 1e-5;
+    gradients rtol 2e-4, atol 2e-5), every move through host memory."""
+    from repro_torch.launch.mesh import run_in_processes
+    for loss, loss0, worst, how in run_in_processes(
+            _grads_rank, 2, arch, store_dir=tmp_path, timeout=RANK_TIMEOUT):
+        assert abs(loss - loss0) <= LOSS_RTOL * abs(loss0), (loss, loss0)
+        assert worst <= 1.0 and how == ["gloo-host"], (worst, how)
