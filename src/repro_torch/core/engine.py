@@ -3,13 +3,17 @@
 The port of src/repro/core/engine.py. `SearchConfig` has the same fields and
 checks (the paper's eight techniques as one composable configuration, §4).
 `DiskIndex.search` drives core/search_kernel.search_batched on the index's
-device: page reads, hops, distance evaluations and recall are measured from
-the actual search; latency and QPS come from the SSD device model
-(core/device_model.py) applied to those counts.
+device: page reads, hops, distance evaluations and recall are counted from
+the actual search, and its time is the card's wall clock. The SSD device
+model (core/device_model.py, `QueryStats.summary`) prices those counts as
+the paper's disk would serve them. A host-clock tracer
+(`search(..., tracer=Tracer(clock="host"))`) records where a call's time
+goes (docs/torch_host_clock.md).
 """
 from __future__ import annotations
 
 import dataclasses
+from collections import Counter
 from typing import Optional
 
 import numpy as np
@@ -124,12 +128,26 @@ class DiskIndex:
         return self._stores[key]
 
     def search(self, queries: np.ndarray, cfg: Optional[SearchConfig] = None,
-               batch: int = 256) -> QueryStats:
+               batch: int = 256, tracer=None) -> QueryStats:
+        """`tracer` (repro_torch.obs.Tracer(clock="host")) records the call
+        as one `search.call` span over the spans of search_batched, with the
+        call's counts in its args: queries, batches, hop_iters (disk-loop
+        iterations), mem_iters (MemGraph-loop iterations) and syncs."""
         cfg = cfg or self.cfg
+        if tracer:
+            call = tracer.begin("search.call", "search")
         # the cache only serves reads when the search config enables it
         store = self.page_store(use_cache=cfg.cache_frac > 0)
         # facade callers never batch across queries: skip the per-query
         # visited-page bitmaps
-        return search_batched(store, self.pq, cfg, queries,
-                              medoid=self.medoid, memgraph=self.memgraph,
-                              batch=batch, collect_visited=False)
+        st = search_batched(store, self.pq, cfg, queries,
+                            medoid=self.medoid, memgraph=self.memgraph,
+                            batch=batch, collect_visited=False,
+                            tracer=tracer)
+        if tracer:
+            n = Counter(s.name for s in tracer.spans[call + 1:])
+            tracer.end(call, args={
+                "queries": len(queries), "batches": n["search.hops"],
+                "hop_iters": n["search.hop"], "mem_iters": n["mem.hop"],
+                "syncs": n["search.sync"]})
+        return st

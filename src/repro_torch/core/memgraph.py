@@ -44,12 +44,14 @@ class MemGraph:
         return self._dev
 
     def entry_points(self, queries: np.ndarray, n_entries: int = 4,
-                     L: int = 32, width: int = 2) -> dict:
+                     L: int = 32, width: int = 2, tracer=None) -> dict:
         """Returns dict(entries (B, n_entries) int32 vids in the FULL id
-        space, hops (B,), dist_evals per query)."""
+        space, hops (B,), dist_evals per query). A host-clock `tracer`
+        gets the navigation search's spans (vamana.beam_search_mem)."""
         X, G = self._device_arrays()
         res = vamana.beam_search_mem(X, G, self.medoid, queries, L=L,
-                                     width=width, device=self.device)
+                                     width=width, device=self.device,
+                                     tracer=tracer)
         ids = res["ids"][:, :n_entries]
         valid = ids < self.vectors.shape[0]
         entries = np.where(valid, self.sample_ids[np.minimum(

@@ -48,12 +48,14 @@ def _search_batch(page_vids, page_vecs, page_nbrs, vid2page, vid2slot,
                   pq_centroids, pq_codes, cached, q, entries, entry_valid, *,
                   k, L, width, max_iters, n_p, page_search, dynamic_width,
                   dw_min, dw_max, pipeline, spec, track_visited=True,
-                  track_trace=False):
+                  track_trace=False, tracer=None):
     """All tensors on one device: page_vids (P, n_p), page_nbrs (P, n_p, R),
     vid2page/vid2slot (n,) int64; page_vecs (P, n_p, d) f32; pq_centroids
     (M, 256, dsub) f32; pq_codes (n, M) uint8; cached (n,) bool; q (B, d)
     f32; entries (B, E) int64; entry_valid (B, E) bool. Returns a dict of
-    (B, ...) tensors."""
+    (B, ...) tensors. A host-clock `tracer` gets a `search.sync` span for
+    each loop check's host sync and a `search.hop` span for each iteration
+    (its work, then the next check and its sync)."""
     dev = q.device
     B = q.shape[0]
     n = vid2page.shape[0]
@@ -105,11 +107,21 @@ def _search_batch(page_vids, page_vecs, page_nbrs, vid2page, vid2slot,
     # metrics: pages, cache_hits, nread, neff, fulle, pqe
     met = [torch.zeros(B, dtype=torch.float32, device=dev) for _ in range(6)]
 
+    hop = None
     while True:
         live = (((ids < SENTINEL) & ~flags[..., 0] & (keys[..., 0] < INF))
                 .any(1) & (it < max_iters))
-        if not bool(live.any()):
+        if tracer:
+            sync = tracer.begin("search.sync", "search")
+        go = bool(live.any())
+        if tracer:
+            tracer.end(sync)
+            if hop is not None:
+                tracer.end(hop)
+        if not go:
             break
+        if tracer:
+            hop = tracer.begin("search.hop", "search")
         best_before = keys[:, 0, 0]
         w_now = (torch.clamp(w_dyn, max=float(dw_max)) if dynamic_width
                  else full((B,), float(width), torch.float32))
@@ -349,7 +361,8 @@ def search_batched(store, pq, cfg, queries: np.ndarray, *,
                    medoid: int, memgraph=None, batch: int = 256,
                    collect_visited: bool = True,
                    collect_trace: bool = False,
-                   account_kernel_io: bool = True) -> QueryStats:
+                   account_kernel_io: bool = True,
+                   tracer=None) -> QueryStats:
     """Feed query batches through `_search_batch` on the store's device,
     with page data and the cache mask supplied by `store`.
 
@@ -359,7 +372,17 @@ def search_batched(store, pq, cfg, queries: np.ndarray, *,
     fused kernel's page schedule), the results stay identical to
     `pipeline=True`, and each batch's schedule is re-executed through the
     fused kernel: QueryStats.measured_step_us carries each query's measured
-    kernel time (its page count x the batch's measured per-page rate)."""
+    kernel time (its page count x the batch's measured per-page rate).
+
+    A `tracer` (repro_torch.obs.Tracer(clock="host"); any other clock
+    raises ValueError) gets the spans of each batch: `search.memgraph`,
+    `search.upload`, `search.hops` (the whole `_search_batch`, with its
+    `search.hop` and `search.sync` spans), `search.readback` and
+    `search.stats`, then one `search.stats` for the concatenation. With
+    `tracer=None` each emission costs one falsy check."""
+    if tracer is not None and tracer.clock != "host":
+        raise ValueError(f"the search path stamps the host clock: pass "
+                         f"Tracer(clock='host'), not clock={tracer.clock!r}")
     fused = cfg.pipeline == "fused"
     track_trace = collect_trace or fused
     dev = store.device
@@ -373,26 +396,44 @@ def search_batched(store, pq, cfg, queries: np.ndarray, *,
     for s in range(0, len(queries), batch):
         qb = np.asarray(queries[s:s + batch], np.float32)
         if memgraph is not None and cfg.memgraph_frac > 0:
+            if tracer:
+                span = tracer.begin("search.memgraph", "search")
             mg = memgraph.entry_points(
-                qb, n_entries=cfg.memgraph_entries, L=cfg.memgraph_L)
+                qb, n_entries=cfg.memgraph_entries, L=cfg.memgraph_L,
+                tracer=tracer)
+            if tracer:
+                tracer.end(span)
             entries = mg["entries"]
             mem_hops, mem_evals = mg["hops"], mg["dist_evals"]
         else:
             entries = np.full((len(qb), 1), medoid, np.int32)
             mem_hops = np.zeros(len(qb), np.int32)
             mem_evals = np.zeros(len(qb), np.int32)
+        if tracer:
+            span = tracer.begin("search.upload", "search")
         ent = torch.as_tensor(entries.astype(np.int64), device=dev)
+        qt = torch.as_tensor(qb, device=dev)
+        ent_ok = ent >= 0
+        if tracer:
+            tracer.end(span)
+            span = tracer.begin("search.hops", "search")
         out = _search_batch(
             vids, vecs, nbrs, v2p, v2s, pq_cent, pq_codes, cached,
-            torch.as_tensor(qb, device=dev), ent, ent >= 0,
+            qt, ent, ent_ok,
             k=cfg.k, L=cfg.L, width=cfg.beam_width,
             max_iters=cfg.max_iters, n_p=store.layout.n_p,
             page_search=cfg.page_search,
             dynamic_width=cfg.dynamic_width, dw_min=cfg.dw_min,
             dw_max=cfg.dw_max, pipeline=bool(cfg.pipeline),
             spec=cfg.pipeline_spec, track_visited=collect_visited,
-            track_trace=track_trace)
+            track_trace=track_trace, tracer=tracer)
+        if tracer:
+            tracer.end(span)
+            span = tracer.begin("search.readback", "search")
         out = {k_: v.cpu().numpy() for k_, v in out.items()}
+        if tracer:
+            tracer.end(span)
+            span = tracer.begin("search.stats", "search")
         out["mem_hops"] = mem_hops
         out["mem_evals"] = mem_evals
         st = QueryStats.from_kernel(out)
@@ -402,5 +443,12 @@ def search_batched(store, pq, cfg, queries: np.ndarray, *,
                                    * m["us_per_page"])
         if account_kernel_io:
             store.note_kernel_io(st)
+        if tracer:
+            tracer.end(span)
         parts.append(st)
-    return QueryStats.concat(parts)
+    if tracer:
+        span = tracer.begin("search.stats", "search")
+    st = QueryStats.concat(parts)
+    if tracer:
+        tracer.end(span)
+    return st

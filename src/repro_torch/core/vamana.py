@@ -35,12 +35,15 @@ def medoid(x: np.ndarray) -> int:
 
 
 def _beam_search_mem_batch(X, G, entries, entry_valid, q, *, L, width,
-                           max_iters, visited_cap):
+                           max_iters, visited_cap, tracer=None):
     """Batched over queries; tensors on one device. X (n, d) f32; G (n, R)
     int64 (-1 padded); entries (B, E) int64; entry_valid (B, E) bool;
     q (B, d) f32. Returns dict(ids (B, L), dists (B, L), visited_ids
     (B, V), visited_dists, hops (B,)). A finished query keeps its state
-    while the others go on, as under the reference's vmap."""
+    while the others go on, as under the reference's vmap. A host-clock
+    `tracer` gets a `search.sync` span for each loop check's host sync and
+    a `mem.hop` span for each iteration (its work, then the next check and
+    its sync)."""
     dev = q.device
     B, n = q.shape[0], X.shape[0]
     d0 = torch.where(entry_valid,
@@ -60,10 +63,20 @@ def _beam_search_mem_batch(X, G, entries, entry_valid, q, *, L, width,
     vn = torch.zeros(B, dtype=torch.int64, device=dev)
     span = torch.arange(width, device=dev)
 
+    hop = None
     while True:
         live = ((ids < SENTINEL) & ~flags[..., 0]).any(1) & (it < max_iters)
-        if not bool(live.any()):
+        if tracer:
+            sync = tracer.begin("search.sync", "search")
+        go = bool(live.any())
+        if tracer:
+            tracer.end(sync)
+            if hop is not None:
+                tracer.end(hop)
+        if not go:
             break
+        if tracer:
+            hop = tracer.begin("mem.hop", "search")
         fidx, active = top_w_unexpanded(keys[..., 0], flags[..., 0],
                                         ids < SENTINEL, width)
         fids = torch.where(active, torch.gather(ids, 1, fidx), SENTINEL)
@@ -100,11 +113,15 @@ def _beam_search_mem_batch(X, G, entries, entry_valid, q, *, L, width,
 
 
 def beam_search_mem(X, G, entry: int, q, L=64, width=1, max_iters=None,
-                    visited_cap=None, device=None) -> dict:
+                    visited_cap=None, device=None, tracer=None) -> dict:
     """q: (B, d). Single fixed entry point (the medoid). X, G and q are
     numpy arrays or tensors; the search runs on `device` and returns numpy
-    arrays."""
+    arrays. A host-clock `tracer` gets `search.upload` and
+    `search.readback` spans around the moves to and from the device, and
+    the loop's spans (`_beam_search_mem_batch`)."""
     device = resolve_device(device)
+    if tracer:
+        span = tracer.begin("search.upload", "search")
     X = torch.as_tensor(X, dtype=torch.float32, device=device)
     G = torch.as_tensor(G, device=device).to(torch.int64)
     q = torch.as_tensor(q, dtype=torch.float32, device=device)
@@ -113,10 +130,17 @@ def beam_search_mem(X, G, entry: int, q, L=64, width=1, max_iters=None,
     visited_cap = visited_cap or (width * max_iters)
     entries = torch.full((B, 1), entry, dtype=torch.int64, device=device)
     valid = torch.ones((B, 1), dtype=torch.bool, device=device)
+    if tracer:
+        tracer.end(span)
     res = _beam_search_mem_batch(X, G, entries, valid, q, L=L, width=width,
                                  max_iters=max_iters,
-                                 visited_cap=visited_cap)
-    return {k: v.cpu().numpy() for k, v in res.items()}
+                                 visited_cap=visited_cap, tracer=tracer)
+    if tracer:
+        span = tracer.begin("search.readback", "search")
+    res = {k: v.cpu().numpy() for k, v in res.items()}
+    if tracer:
+        tracer.end(span)
+    return res
 
 
 # ---------------------------------------------------------------------------

@@ -15,6 +15,11 @@ Mapping (see docs/observability.md for the full schema):
 - one flow per query (``"s"`` at arrival, ``"t"`` at dispatch, ``"f"``
   at completion) visually links admission -> executor batch -> done
 - ``"M"`` metadata names every process and thread
+- host-clock spans (``Tracer(clock="host")``, the search path) -> complete
+  ``"X"`` events on the ``search`` lane with ``ts`` in Unix-epoch
+  microseconds, the call id as ``args.qid`` and the parent span's index
+  as ``args.parent``; ``otherData.clock`` is ``"unix_us"``.
+  ``on_profiler_clock`` moves them onto a torch.profiler trace's timeline
 
 The ``service`` phase's ``args`` carry the attribution tuple
 (``latency_us``/``queue_us``/``interference_us``/``service_us``) so a
@@ -26,7 +31,7 @@ from typing import Any, Dict, List, Sequence, Tuple
 
 from repro_torch.obs.tracer import PHASE_CATS, Span
 
-__all__ = ["to_chrome_trace", "tid_for_track"]
+__all__ = ["to_chrome_trace", "tid_for_track", "on_profiler_clock"]
 
 _TRACK_TIDS = {
     "admission": 0,
@@ -34,6 +39,7 @@ _TRACK_TIDS = {
     "query": 2,
     "background": 3,
     "migration": 4,
+    "search": 5,
 }
 _SHARD_TID_BASE = 10
 _FALLBACK_TID = 9
@@ -52,14 +58,16 @@ def _meta(pid: int, name: str, tid: int = 0, *,
             "args": {"name": name}}
 
 
-def to_chrome_trace(spans: Sequence[Span]) -> Dict[str, Any]:
+def to_chrome_trace(spans: Sequence[Span],
+                    clock: str = "virtual_us") -> Dict[str, Any]:
     events: List[Dict[str, Any]] = []
     lanes: Dict[Tuple[int, str], int] = {}
     for s in spans:
         lanes.setdefault((s.pid, s.track), tid_for_track(s.track))
 
     for pid in sorted({p for p, _ in lanes}):
-        events.append(_meta(pid, f"replica_group_{pid}"))
+        events.append(_meta(pid, f"replica_group_{pid}" if clock ==
+                            "virtual_us" else f"host_{pid}"))
     for (pid, track), tid in sorted(lanes.items()):
         events.append(_meta(pid, track, tid, kind="thread_name"))
         events.append({"ph": "M", "pid": pid, "tid": tid,
@@ -77,6 +85,8 @@ def to_chrome_trace(spans: Sequence[Span]) -> Dict[str, Any]:
             base["args"] = dict(s.args)
         if s.qid is not None:
             base.setdefault("args", {})["qid"] = s.qid
+        if s.parent is not None:
+            base.setdefault("args", {})["parent"] = s.parent
         if s.cat in PHASE_CATS:
             qid = str(s.qid)
             body.append({**base, "ph": "b", "id": qid})
@@ -112,5 +122,20 @@ def to_chrome_trace(spans: Sequence[Span]) -> Dict[str, Any]:
 
     body.sort(key=lambda e: e["ts"])
     return {"traceEvents": events + body, "displayTimeUnit": "ms",
-            "otherData": {"clock": "virtual_us",
-                          "source": "repro_torch.obs"}}
+            "otherData": {"clock": clock, "source": "repro_torch.obs"}}
+
+
+def on_profiler_clock(doc: Dict[str, Any],
+                      base_ns: int) -> List[Dict[str, Any]]:
+    """The timed events of a host-clock trace (``otherData.clock ==
+    "unix_us"``) with ``ts`` moved onto a torch.profiler Chrome trace's
+    timeline, whose events stamp ``ts`` in microseconds after the trace's
+    ``baseTimeNanoseconds`` (``base_ns``). Append them to that trace's
+    ``traceEvents`` to see both in one view."""
+    if doc.get("otherData", {}).get("clock") != "unix_us":
+        raise ValueError("only a host-clock trace (otherData.clock == "
+                         "'unix_us') shares the profiler's clock")
+    base_us = int(base_ns) // 1000
+    frac_us = (int(base_ns) % 1000) / 1e3
+    return [{**ev, "ts": ev["ts"] - base_us - frac_us}
+            for ev in doc["traceEvents"] if ev.get("ph") != "M"]

@@ -1,25 +1,41 @@
-"""Span-based tracer for the virtual-time serving loops.
+"""Span-based tracer with two clocks.
 
-Every timestamp recorded here is *virtual-time microseconds* from the
+``Tracer()`` (clock "virtual") records *virtual-time microseconds* from the
 serving clocks (arrival process, device windows, background clocks) —
-never host wall clock.  The tracer is a plain append-only list of
-``Span`` records; exporting to Chrome trace-event JSON is a separate,
-offline step (``repro_torch.obs.export``).
+never host wall clock — for the serving loops.
 
-Zero-cost disabled path: serving code holds ``tracer=None`` (or a
-``Tracer(enabled=False)``) and guards every emission with a single
-truthiness check — no span objects, no list appends, no arithmetic.
+``Tracer(clock="host")`` stamps spans on the host's clock for the search
+path (``DiskIndex.search``): Unix-epoch microseconds, taken as
+``time.perf_counter_ns()`` plus one offset to ``time.time_ns()`` read when
+the tracer is made, so stamps never go backwards within a run and sit on
+the clock torch.profiler's Chrome trace uses (an event's ``ts`` plus the
+trace's ``baseTimeNanoseconds``). Host spans open with ``begin`` and close
+with ``end``; a span opened while another is open records that one as its
+``parent``, and shares its ``qid`` (the id of the outermost call).
+
+The tracer is a plain append-only list of ``Span`` records; exporting to
+Chrome trace-event JSON is a separate, offline step
+(``repro_torch.obs.export``).
+
+Zero-cost disabled path: serving and search code hold ``tracer=None`` (or
+a ``Tracer(enabled=False)``) and guard every emission with a single
+truthiness check — no span objects, no list appends, no arithmetic, no
+clock reads.
 """
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional
 
-__all__ = ["Span", "Tracer", "TraceSummary", "PHASE_CATS"]
+__all__ = ["Span", "Tracer", "TraceSummary", "PHASE_CATS", "CLOCKS"]
 
 # Per-query latency phases; their durations obey the conservation
 # contract  queue_us + interference_us + service_us == latency_us.
 PHASE_CATS = ("queue", "interference", "service")
+
+# Tracer clock -> the trace's otherData.clock
+CLOCKS = {"virtual": "virtual_us", "host": "unix_us"}
 
 
 @dataclass
@@ -29,7 +45,9 @@ class Span:
     ``pid`` is the replica group (0 for a single server / control
     plane); ``track`` names the lane within the group ("executor",
     "shard<N>", "background", "migration", "admission", "query").
-    ``qid`` ties per-query spans and flow events together.
+    ``qid`` ties per-query spans and flow events together (on the host
+    clock: the call's id). ``parent`` is the index in ``Tracer.spans`` of
+    the host span open when this one began.
     """
 
     name: str
@@ -41,6 +59,7 @@ class Span:
     qid: Optional[int] = None
     args: Optional[Dict[str, Any]] = None
     ph: str = "X"
+    parent: Optional[int] = None
 
 
 @dataclass
@@ -56,11 +75,25 @@ class TraceSummary:
 
 
 class Tracer:
-    """Append-only span collector threaded through the serving loops."""
+    """Append-only span collector threaded through the serving loops
+    (clock "virtual") or the search path (clock "host")."""
 
-    def __init__(self, enabled: bool = True) -> None:
+    def __init__(self, enabled: bool = True, clock: str = "virtual") -> None:
+        if clock not in CLOCKS:
+            raise ValueError(
+                f"clock={clock!r} must be one of {sorted(CLOCKS)}")
         self.enabled = bool(enabled)
+        self.clock = clock
         self.spans: List[Span] = []
+        self._open: List[int] = []
+        self._calls = 0
+        if clock == "host":
+            # one offset from the monotonic counter to the Unix epoch, read
+            # between two counter reads
+            c0 = time.perf_counter_ns()
+            wall_ns = time.time_ns()
+            c1 = time.perf_counter_ns()
+            self._epoch_ns = wall_ns - (c0 + c1) // 2
 
     def __bool__(self) -> bool:
         return self.enabled
@@ -89,6 +122,43 @@ class Tracer:
         self.spans.append(Span(name=name, cat=cat, t0_us=float(t_us),
                                dur_us=0.0, pid=pid, track=track, qid=qid,
                                args=args, ph="i"))
+
+    # -- host clock --------------------------------------------------------
+
+    def _now_us(self) -> float:
+        """The host clock: Unix-epoch microseconds."""
+        if self.clock != "host":
+            raise ValueError("a virtual tracer has no host clock: make it "
+                             "with Tracer(clock='host')")
+        return (time.perf_counter_ns() + self._epoch_ns) / 1e3
+
+    def begin(self, name: str, cat: str) -> int:
+        """Opens a host span now, on the ``search`` lane; returns its index
+        for ``end``. Its parent is the innermost span still open; an
+        outermost span is a new call and takes the next call id as its
+        ``qid``."""
+        t0_us = self._now_us()
+        parent = self._open[-1] if self._open else None
+        if parent is None:
+            qid = self._calls
+            self._calls += 1
+        else:
+            qid = self.spans[parent].qid
+        self.spans.append(Span(name=name, cat=cat, t0_us=t0_us,
+                               track="search", qid=qid, parent=parent))
+        self._open.append(len(self.spans) - 1)
+        return self._open[-1]
+
+    def end(self, i: int, args: Optional[Dict[str, Any]] = None) -> None:
+        """Closes host span ``i`` now, with ``args`` as its args. Spans
+        close innermost first."""
+        t1_us = self._now_us()
+        if not self._open or self._open[-1] != i:
+            raise ValueError(f"span {i} is not the innermost open span")
+        self._open.pop()
+        s = self.spans[i]
+        s.dur_us = t1_us - s.t0_us
+        s.args = args
 
     # -- reading -----------------------------------------------------------
 
@@ -122,7 +192,7 @@ class Tracer:
 
     def to_chrome(self) -> Dict[str, Any]:
         from repro_torch.obs.export import to_chrome_trace
-        return to_chrome_trace(self.spans)
+        return to_chrome_trace(self.spans, clock=CLOCKS[self.clock])
 
     def export(self, path: str) -> Dict[str, Any]:
         import json

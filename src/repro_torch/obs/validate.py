@@ -10,6 +10,9 @@ Checks the three properties the CI bench-smoke job gates on:
    ``queue_us + interference_us + service_us == latency_us`` within
    ``CONSERVATION_TOL_US``).
 
+A host-clock trace (``otherData.clock == "unix_us"``, the search path's
+spans) carries no latency attribution, so it needs no ``service`` span.
+
 Usable as a library (``validate_chrome_trace(doc) -> [problems]``) or a
 CLI: ``python -m repro_torch.obs.validate trace.json``.
 """
@@ -119,7 +122,9 @@ def validate_chrome_trace(doc: Any) -> List[str]:
     for fid, st in flows.items():
         if st["s"] is None or not st["f"]:
             problems.append(f"flow {fid} does not resolve (s..f)")
-    if n_service == 0:
+    host = (isinstance(doc.get("otherData"), dict)
+            and doc["otherData"].get("clock") == "unix_us")
+    if n_service == 0 and not host:
         problems.append("trace has no service spans (nothing to attribute)")
     return problems
 
