@@ -19,7 +19,7 @@ from typing import Optional
 import numpy as np
 
 from repro_torch._device import resolve_device
-from repro_torch.core.search_kernel import search_batched
+from repro_torch.core.search_kernel import hop_graph_counts, search_batched
 from repro_torch.core.stats import QueryStats, SearchResult  # noqa: F401
 from repro_torch.io import build_store
 
@@ -132,10 +132,13 @@ class DiskIndex:
         """`tracer` (repro_torch.obs.Tracer(clock="host")) records the call
         as one `search.call` span over the spans of search_batched, with the
         call's counts in its args: queries, batches, hop_iters (disk-loop
-        iterations), mem_iters (MemGraph-loop iterations) and syncs."""
+        iterations), mem_iters (MemGraph-loop iterations), syncs,
+        graph_hops (disk-loop iterations replayed from a captured CUDA
+        graph) and graph_captures (graphs captured in the call)."""
         cfg = cfg or self.cfg
         if tracer:
             call = tracer.begin("search.call", "search")
+            graphs0 = hop_graph_counts()
         # the cache only serves reads when the search config enables it
         store = self.page_store(use_cache=cfg.cache_frac > 0)
         # facade callers never batch across queries: skip the per-query
@@ -146,8 +149,11 @@ class DiskIndex:
                             tracer=tracer)
         if tracer:
             n = Counter(s.name for s in tracer.spans[call + 1:])
+            hops, captures = hop_graph_counts()
             tracer.end(call, args={
                 "queries": len(queries), "batches": n["search.hops"],
                 "hop_iters": n["search.hop"], "mem_iters": n["mem.hop"],
-                "syncs": n["search.sync"]})
+                "syncs": n["search.sync"],
+                "graph_hops": hops - graphs0[0],
+                "graph_captures": captures - graphs0[1]})
         return st

@@ -8,6 +8,10 @@ iteration is one hop of every query that is still open, and a query that
 has finished keeps its whole state (candidate list, hop count, DynamicWidth
 state, every metric), exactly as the reference's batched while loop freezes
 it. The loop runs at most `max_iters` hops and stops once no query is open.
+One hop (`_hop`) has fixed shapes and no host sync, so on a CUDA device it
+is captured once per shape key as a CUDA graph and replayed for every
+iteration, one launch where op by op it takes some 260-295; off the card
+the same `_hop` runs op by op. The host reads one flag an iteration.
 
 Besides the per-query counters, the search emits `visited_pages` (a
 (B, num_pages) bitmap of the pages each query charged) when
@@ -33,15 +37,358 @@ Technique mapping (SearchConfig), as in the reference:
 """
 from __future__ import annotations
 
+import functools
 import os
 import time
+from collections import OrderedDict
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
+from repro_torch._device import same_device
 from repro_torch.core.searchutils import (INF, SENTINEL, dedup_merge_topL,
                                           sq_dists, top_w_unexpanded)
 from repro_torch.core.stats import QueryStats
+
+
+class _Inputs(NamedTuple):
+    """What a disk hop reads besides the state: the store's page tensors,
+    vid2page/vid2slot, the PQ codes and the cache mask (read in place), the
+    batch's queries q (B, d) and flat ADC tables lut_flat (B, M*256), and
+    three index vectors: code_off (M,), rows (B,), cols (w_cap,)."""
+    page_vids: torch.Tensor
+    page_vecs: torch.Tensor
+    page_nbrs: torch.Tensor
+    vid2page: torch.Tensor
+    vid2slot: torch.Tensor
+    pq_codes: torch.Tensor
+    cached: torch.Tensor
+    q: torch.Tensor
+    lut_flat: torch.Tensor
+    code_off: torch.Tensor
+    rows: torch.Tensor
+    cols: torch.Tensor
+
+
+class _State(NamedTuple):
+    """The search state a hop maps to the next, each (B, ...): the
+    candidate list (ids; keys = [rank_key, exact_dist]; flags = [expanded,
+    exact_known]), hops taken, the DynamicWidth state, the six metrics, and
+    the optional visited bitmap and page trace, which a hop writes in
+    place."""
+    ids: torch.Tensor
+    keys: torch.Tensor
+    flags: torch.Tensor
+    it: torch.Tensor
+    w_dyn: torch.Tensor
+    stall: torch.Tensor
+    pages: torch.Tensor
+    cache_hits: torch.Tensor
+    n_read: torch.Tensor
+    n_eff: torch.Tensor
+    full_evals: torch.Tensor
+    pq_evals: torch.Tensor
+    visited: Optional[torch.Tensor]
+    trace: Optional[torch.Tensor]
+
+
+def _pq_dist(t, ids):
+    """ADC distances (B, X) from each row's query to vertices ids (B, X)."""
+    n = t.vid2page.shape[0]
+    codes = t.pq_codes[ids.clamp(0, n - 1)].long() + t.code_off  # (B, X, M)
+    d = torch.gather(t.lut_flat, 1, codes.reshape(ids.shape[0], -1))
+    return d.reshape(codes.shape).sum(-1)
+
+
+def _live(st, max_iters):
+    """(B,) bool: the query has an unexpanded candidate and hops left."""
+    open_ = (st.ids < SENTINEL) & ~st.flags[..., 0] & (st.keys[..., 0] < INF)
+    return open_.any(1) & (st.it < max_iters)
+
+
+def _hop(t, st, live, *, L, width, w_cap, spec, max_iters, n_p,
+         page_search, dynamic_width, dw_max):
+    """One hop of every live query: `t` (_Inputs) and `st` (_State) on one
+    device, `live` (B,) bool. Returns the next _State; a query that is not
+    live keeps its state. Fixed shapes, no host sync: the same launches
+    whatever the data, so a CUDA graph can replay it."""
+    dev = t.q.device
+    B = t.q.shape[0]
+    n = t.vid2page.shape[0]
+    num_pages = t.page_vids.shape[0]
+    ids, keys, flags = st.ids, st.keys, st.flags
+
+    best_before = keys[:, 0, 0]
+    w_now = (torch.clamp(st.w_dyn, max=float(dw_max)) if dynamic_width
+             else torch.full((B,), float(width), dtype=torch.float32,
+                             device=dev))
+    w_sel = torch.clamp(w_now, max=float(width)).to(torch.int64)
+    fidx, active = top_w_unexpanded(
+        keys[..., 0], flags[..., 0], ids < SENTINEL, w_cap,
+        w_dynamic=w_sel + spec)
+    # pipeline: the first w_sel are confirmed, the rest speculative
+    fids = torch.where(active, torch.gather(ids, 1, fidx), SENTINEL)
+    neff = (active & (t.cols[None, :] < w_sel[:, None])).sum(1)
+
+    # --- page fetch accounting ------------------------------------------
+    page_ok = fids < SENTINEL
+    safe_f = fids.clamp(0, n - 1)
+    fpages = torch.where(page_ok, t.vid2page[safe_f], -1)
+    is_cached = page_ok & t.cached[safe_f]
+    chargeable = torch.where(is_cached, -1, fpages)
+    srt = torch.sort(chargeable, dim=1).values
+    uniq = srt >= 0
+    uniq[:, 1:] &= srt[:, 1:] != srt[:, :-1]
+    pages_step = uniq.sum(1).to(torch.float32)
+    if st.visited is not None:
+        slot = torch.where((chargeable >= 0) & live[:, None], chargeable,
+                           num_pages)
+        st.visited.scatter_(1, slot, True)
+    if st.trace is not None:
+        h = st.it.clamp(max=max_iters - 1)
+        row = torch.where(uniq, srt, -1).to(torch.int32)
+        st.trace[t.rows, h] = torch.where(live[:, None], row,
+                                          st.trace[t.rows, h])
+
+    # --- fetch records --------------------------------------------------
+    pg = fpages.clamp(min=0)
+    rec_vids = t.page_vids[pg]                      # (B, w_cap, n_p)
+    rec_vecs = t.page_vecs[pg]                      # (B, w_cap, n_p, d)
+    rec_nbrs = t.page_nbrs[pg, t.vid2slot[safe_f]]  # (B, w_cap, R)
+
+    # exact distance for every record on fetched pages
+    rd = sq_dists(t.q[:, None, :], rec_vecs)        # (B, w_cap, n_p)
+    rec_valid = (rec_vids >= 0) & page_ok[..., None]
+    full_step = rec_valid.sum((1, 2)).to(torch.float32)
+
+    # frontier's own exact distances (re-rank info, always used)
+    own = rec_vids == torch.where(page_ok, fids, -2)[..., None]
+    own_ids = torch.where(page_ok, fids, SENTINEL)
+    own_d = torch.where(page_ok, torch.where(own, rd, 0.0).sum(-1), INF)
+
+    # --- assemble merge inputs ------------------------------------------
+    parts_ids = [ids, own_ids]
+    parts_rank = [keys[..., 0], own_d]
+    parts_exact = [keys[..., 1], own_d]
+    parts_exp = [flags[..., 0], page_ok]
+    parts_exk = [flags[..., 1], page_ok]
+
+    if page_search:
+        pr_ids = torch.where(rec_valid, rec_vids, SENTINEL).reshape(B, -1)
+        pr_d = torch.where(rec_valid, rd, INF).reshape(B, -1)
+        parts_ids.append(pr_ids)
+        parts_rank.append(pr_d)
+        parts_exact.append(pr_d)
+        parts_exp.append(torch.zeros_like(pr_ids, dtype=torch.bool))
+        parts_exk.append(pr_ids < SENTINEL)
+
+    nb = torch.where(page_ok[..., None] & (rec_nbrs >= 0), rec_nbrs,
+                     SENTINEL).reshape(B, -1)
+    nb_pq = torch.where(nb < SENTINEL, _pq_dist(t, nb), INF)
+    pq_step = (nb < SENTINEL).sum(1).to(torch.float32)
+    parts_ids.append(nb)
+    parts_rank.append(nb_pq)
+    parts_exact.append(torch.full_like(nb_pq, INF))
+    parts_exp.append(torch.zeros_like(nb, dtype=torch.bool))
+    parts_exk.append(torch.zeros_like(nb, dtype=torch.bool))
+
+    all_ids = torch.cat(parts_ids, 1)
+    all_keys = torch.stack([torch.cat(parts_rank, 1),
+                            torch.cat(parts_exact, 1)], -1)
+    all_flags = torch.stack([torch.cat(parts_exp, 1),
+                             torch.cat(parts_exk, 1)], -1)
+    n_ids, n_keys, n_flags = dedup_merge_topL(all_ids, all_keys, all_flags,
+                                              L)
+    # expanded entries keep exact distance as ranking key
+    n_keys[..., 0] = torch.where(n_flags[..., 1], n_keys[..., 1],
+                                 n_keys[..., 0])
+
+    # dynamic width phase detection: no improvement => converge phase
+    improved = n_keys[:, 0, 0] < best_before
+    n_stall = torch.where(improved, 0.0, st.stall + 1.0)
+    n_w_dyn = (torch.where(n_stall > 0,
+                           torch.clamp(st.w_dyn * 2.0, max=float(dw_max)),
+                           st.w_dyn)
+               if dynamic_width else st.w_dyn)
+
+    # --- a finished query keeps its state -------------------------------
+    steps = (pages_step, is_cached.sum(1).to(torch.float32),
+             pages_step * n_p, neff, full_step, pq_step)
+    met = [torch.where(live, v + s, v) for v, s in zip(st[6:12], steps)]
+    return _State(torch.where(live[:, None], n_ids, ids),
+                  torch.where(live[:, None, None], n_keys, keys),
+                  torch.where(live[:, None, None], n_flags, flags),
+                  st.it + live.to(torch.int64),
+                  torch.where(live, n_w_dyn, st.w_dyn),
+                  torch.where(live, n_stall, st.stall),
+                  *met, st.visited, st.trace)
+
+
+def _graphs_on(device) -> bool:
+    """Whether the disk loop replays captured CUDA graphs on `device`."""
+    return device.type == "cuda"
+
+
+def _graph_key(device, batch: int, tensors, static: dict) -> tuple:
+    """The cache key of a hop's graph: the device, the batch size, the
+    address, shape, strides and dtype of every tensor the graph reads in
+    place, and every static argument. A store whose tensors are uploaded
+    anew gets another key, so no graph replays a stale address."""
+    return (str(device), batch,
+            tuple((x.data_ptr(), tuple(x.shape), x.stride(), x.dtype)
+                  for x in tensors),
+            tuple(static.items()))
+
+
+class _Eager:
+    """The disk loop, op by op: the path off the card."""
+
+    def __init__(self, hop, t, state, max_iters):
+        self.hop, self.t, self.state = hop, t, state
+        self.max_iters = max_iters
+        self.live = _live(state, max_iters)
+
+    def more(self) -> bool:
+        return bool(self.live.any())
+
+    def step(self) -> None:
+        self.state = self.hop(self.t, self.state, self.live)
+        self.live = _live(self.state, self.max_iters)
+
+    def result(self):
+        return self.state
+
+
+class _HopGraph:
+    """One disk hop captured as a CUDA graph over static buffers: copies of
+    the batch's inputs and of the state. A replay maps the state buffers to
+    the next state in place, then writes the next live mask and its any()
+    into `go`, so the host reads one flag an iteration. The graph reads the
+    store's tensors at the addresses its cache key names and holds none of
+    them. Warm-up and capture run on the buffers, never on a call's state,
+    so capturing advances no query."""
+
+    WARMUP = 3
+
+    def __init__(self, hop, t, state, max_iters, pool):
+        self.max_iters = max_iters
+        self.inputs = {f: getattr(t, f).clone()
+                       for f in ("q", "lut_flat", "code_off", "rows", "cols")}
+        self.state = _State(*(None if x is None else x.clone()
+                              for x in state))
+        self.live = _live(self.state, max_iters)
+        self.go = self.live.any()
+        ins = t._replace(**self.inputs)
+
+        def step():
+            new = hop(ins, self.state, self.live)
+            for buf, x in zip(self.state, new):
+                if x is not buf:
+                    buf.copy_(x)
+            self._check()
+
+        self.graph = self._capture(step, t.q.device, pool)
+
+    @staticmethod
+    def _capture(step, device, pool):
+        """`step` warmed up on a side stream, then captured."""
+        side = torch.cuda.Stream(device)
+        side.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(side):
+            for _ in range(_HopGraph.WARMUP):
+                step()
+        torch.cuda.current_stream(device).wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, pool=pool):
+            step()
+        return graph
+
+    def _check(self) -> None:
+        self.live.copy_(_live(self.state, self.max_iters))
+        self.go.copy_(self.live.any())
+
+    def load(self, t, state) -> None:
+        """Copy a call's inputs and initial state into the buffers."""
+        for f, buf in self.inputs.items():
+            buf.copy_(getattr(t, f))
+        for buf, x in zip(self.state, state):
+            if buf is not None:
+                buf.copy_(x)
+        self._check()
+
+    def more(self) -> bool:
+        return bool(self.go)
+
+    def step(self) -> None:
+        self.graph.replay()
+
+    def result(self):
+        """The final state, copied out of the buffers the next call
+        overwrites."""
+        return _State(*(None if x is None else x.clone()
+                        for x in self.state))
+
+
+class _HopGraphs:
+    """The captured hops, one a cache key, the least recently used dropped
+    past `capacity`; all share one memory pool, and one replays at a time.
+    `hops` counts the iterations replayed from a graph, `captures` the
+    graphs captured."""
+
+    def __init__(self, capacity: int = 64):
+        self.capacity = capacity
+        self.graphs: OrderedDict = OrderedDict()
+        self.hops = 0
+        self.captures = 0
+        self._pool = None
+
+    def pool(self):
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        return self._pool
+
+    def get(self, key, capture):
+        """The graph under `key`, made by `capture()` on a miss."""
+        graph = self.graphs.pop(key, None)
+        if graph is None:
+            while len(self.graphs) >= self.capacity:
+                self.graphs.popitem(last=False)
+            graph = capture()
+            self.captures += 1
+        self.graphs[key] = graph
+        return graph
+
+
+_GRAPHS = _HopGraphs()
+
+
+def hop_graph_counts() -> tuple:
+    """(hops replayed from a captured graph, graphs captured) in this
+    process so far."""
+    return _GRAPHS.hops, _GRAPHS.captures
+
+
+def _run(runner, tracer) -> int:
+    """Steps `runner` while a query is live; returns the iterations. A
+    host-clock `tracer` gets a `search.sync` span for each loop check's
+    host sync and a `search.hop` span for each iteration (its work, then
+    the next check and its sync)."""
+    iters, hop = 0, None
+    while True:
+        if tracer:
+            sync = tracer.begin("search.sync", "search")
+        go = runner.more()
+        if tracer:
+            tracer.end(sync)
+            if hop is not None:
+                tracer.end(hop)
+        if not go:
+            return iters
+        if tracer:
+            hop = tracer.begin("search.hop", "search")
+        runner.step()
+        iters += 1
 
 
 def _search_batch(page_vids, page_vecs, page_nbrs, vid2page, vid2slot,
@@ -53,12 +400,15 @@ def _search_batch(page_vids, page_vecs, page_nbrs, vid2page, vid2slot,
     vid2page/vid2slot (n,) int64; page_vecs (P, n_p, d) f32; pq_centroids
     (M, 256, dsub) f32; pq_codes (n, M) uint8; cached (n,) bool; q (B, d)
     f32; entries (B, E) int64; entry_valid (B, E) bool. Returns a dict of
-    (B, ...) tensors. A host-clock `tracer` gets a `search.sync` span for
-    each loop check's host sync and a `search.hop` span for each iteration
-    (its work, then the next check and its sync)."""
+    (B, ...) tensors. On a CUDA device each loop iteration replays the
+    batch's captured hop (`_HopGraphs`); elsewhere it runs op by op. A
+    host-clock `tracer` gets the loop's spans (`_run`)."""
+    static = dict(k=k, L=L, width=width, max_iters=max_iters, n_p=n_p,
+                  page_search=page_search, dynamic_width=dynamic_width,
+                  dw_min=dw_min, dw_max=dw_max, pipeline=pipeline, spec=spec,
+                  track_visited=track_visited, track_trace=track_trace)
     dev = q.device
     B = q.shape[0]
-    n = vid2page.shape[0]
     num_pages = page_vids.shape[0]
     R = page_nbrs.shape[2]
     m, ksub, dsub = pq_centroids.shape
@@ -66,18 +416,13 @@ def _search_batch(page_vids, page_vecs, page_nbrs, vid2page, vid2slot,
     width = min(width, L)   # frontier can never exceed the candidate pool
     w_cap = min(width + (spec if pipeline else 0), L)
     spec_now = spec if pipeline else 0
-    rows = torch.arange(B, device=dev)
-    cols = torch.arange(w_cap, device=dev)
 
     lut = torch.sum(torch.square(pq_centroids[None]
                                  - q.reshape(B, m, 1, dsub)), dim=-1)
-    lut_flat = lut.reshape(B, m * ksub)                     # (B, M*256)
-    code_off = torch.arange(m, device=dev) * ksub
-
-    def pq_dist(ids):
-        codes = pq_codes[ids.clamp(0, n - 1)].long() + code_off  # (B, X, M)
-        d = torch.gather(lut_flat, 1, codes.reshape(B, -1))
-        return d.reshape(codes.shape).sum(-1)
+    t = _Inputs(page_vids, page_vecs, page_nbrs, vid2page, vid2slot,
+                pq_codes, cached, q, lut.reshape(B, m * ksub),
+                torch.arange(m, device=dev) * ksub,
+                torch.arange(B, device=dev), torch.arange(w_cap, device=dev))
 
     def full(shape, value, dtype):
         return torch.full(shape, value, dtype=dtype, device=dev)
@@ -85,7 +430,7 @@ def _search_batch(page_vids, page_vecs, page_nbrs, vid2page, vid2slot,
     # candidate list: keys = [rank_key, exact_dist]; flags = [expanded,
     # exact_known]
     cap = L + w_cap * (n_p if page_search else 0) + w_cap * R
-    e_pq = pq_dist(entries)
+    e_pq = _pq_dist(t, entries)
     ids0 = torch.where(entry_valid, entries, SENTINEL)
     pad = cap - ids0.shape[1]
     ids = torch.cat([ids0, full((B, pad), SENTINEL, torch.int64)], 1)
@@ -95,149 +440,50 @@ def _search_batch(page_vids, page_vecs, page_nbrs, vid2page, vid2slot,
     flags = torch.zeros((B, cap, 2), dtype=torch.bool, device=dev)
     ids, keys, flags = dedup_merge_topL(ids, keys, flags, L)
 
-    it = torch.zeros(B, dtype=torch.int64, device=dev)
-    w_dyn = full((B,), float(dw_min), torch.float32)
-    stall = torch.zeros(B, dtype=torch.float32, device=dev)
     # visited[b, p]: page p charged by query b; column num_pages is the
     # trash slot for "-1 / cached / finished" entries
-    visited = (torch.zeros((B, num_pages + 1), dtype=torch.bool, device=dev)
-               if track_visited else None)
-    trace = (full((B, max_iters, w_cap), -1, torch.int32)
-             if track_trace else None)
-    # metrics: pages, cache_hits, nread, neff, fulle, pqe
-    met = [torch.zeros(B, dtype=torch.float32, device=dev) for _ in range(6)]
-
-    hop = None
-    while True:
-        live = (((ids < SENTINEL) & ~flags[..., 0] & (keys[..., 0] < INF))
-                .any(1) & (it < max_iters))
-        if tracer:
-            sync = tracer.begin("search.sync", "search")
-        go = bool(live.any())
-        if tracer:
-            tracer.end(sync)
-            if hop is not None:
-                tracer.end(hop)
-        if not go:
-            break
-        if tracer:
-            hop = tracer.begin("search.hop", "search")
-        best_before = keys[:, 0, 0]
-        w_now = (torch.clamp(w_dyn, max=float(dw_max)) if dynamic_width
-                 else full((B,), float(width), torch.float32))
-        w_sel = torch.clamp(w_now, max=float(width)).to(torch.int64)
-        fidx, active = top_w_unexpanded(
-            keys[..., 0], flags[..., 0], ids < SENTINEL, w_cap,
-            w_dynamic=w_sel + spec_now)
-        # pipeline: the first w_sel are confirmed, the rest speculative
-        fids = torch.where(active, torch.gather(ids, 1, fidx), SENTINEL)
-        neff = (active & (cols[None, :] < w_sel[:, None])).sum(1)
-
-        # --- page fetch accounting --------------------------------------
-        page_ok = fids < SENTINEL
-        safe_f = fids.clamp(0, n - 1)
-        fpages = torch.where(page_ok, vid2page[safe_f], -1)
-        is_cached = page_ok & cached[safe_f]
-        chargeable = torch.where(is_cached, -1, fpages)
-        srt = torch.sort(chargeable, dim=1).values
-        uniq = srt >= 0
-        uniq[:, 1:] &= srt[:, 1:] != srt[:, :-1]
-        pages_step = uniq.sum(1).to(torch.float32)
-        if track_visited:
-            slot = torch.where((chargeable >= 0) & live[:, None], chargeable,
-                               num_pages)
-            visited.scatter_(1, slot, True)
-        if track_trace:
-            h = it.clamp(max=max_iters - 1)
-            row = torch.where(uniq, srt, -1).to(torch.int32)
-            trace[rows, h] = torch.where(live[:, None], row, trace[rows, h])
-
-        # --- fetch records ----------------------------------------------
-        pg = fpages.clamp(min=0)
-        rec_vids = page_vids[pg]                        # (B, w_cap, n_p)
-        rec_vecs = page_vecs[pg]                        # (B, w_cap, n_p, d)
-        rec_nbrs = page_nbrs[pg, vid2slot[safe_f]]      # (B, w_cap, R)
-
-        # exact distance for every record on fetched pages
-        rd = sq_dists(q[:, None, :], rec_vecs)          # (B, w_cap, n_p)
-        rec_valid = (rec_vids >= 0) & page_ok[..., None]
-        full_step = rec_valid.sum((1, 2)).to(torch.float32)
-
-        # frontier's own exact distances (re-rank info, always used)
-        own = rec_vids == torch.where(page_ok, fids, -2)[..., None]
-        own_ids = torch.where(page_ok, fids, SENTINEL)
-        own_d = torch.where(page_ok, torch.where(own, rd, 0.0).sum(-1), INF)
-
-        # --- assemble merge inputs --------------------------------------
-        parts_ids = [ids, own_ids]
-        parts_rank = [keys[..., 0], own_d]
-        parts_exact = [keys[..., 1], own_d]
-        parts_exp = [flags[..., 0], page_ok]
-        parts_exk = [flags[..., 1], page_ok]
-
-        if page_search:
-            pr_ids = torch.where(rec_valid, rec_vids, SENTINEL).reshape(B, -1)
-            pr_d = torch.where(rec_valid, rd, INF).reshape(B, -1)
-            parts_ids.append(pr_ids)
-            parts_rank.append(pr_d)
-            parts_exact.append(pr_d)
-            parts_exp.append(torch.zeros_like(pr_ids, dtype=torch.bool))
-            parts_exk.append(pr_ids < SENTINEL)
-
-        nb = torch.where(page_ok[..., None] & (rec_nbrs >= 0), rec_nbrs,
-                         SENTINEL).reshape(B, -1)
-        nb_pq = torch.where(nb < SENTINEL, pq_dist(nb), INF)
-        pq_step = (nb < SENTINEL).sum(1).to(torch.float32)
-        parts_ids.append(nb)
-        parts_rank.append(nb_pq)
-        parts_exact.append(torch.full_like(nb_pq, INF))
-        parts_exp.append(torch.zeros_like(nb, dtype=torch.bool))
-        parts_exk.append(torch.zeros_like(nb, dtype=torch.bool))
-
-        all_ids = torch.cat(parts_ids, 1)
-        all_keys = torch.stack([torch.cat(parts_rank, 1),
-                                torch.cat(parts_exact, 1)], -1)
-        all_flags = torch.stack([torch.cat(parts_exp, 1),
-                                 torch.cat(parts_exk, 1)], -1)
-        n_ids, n_keys, n_flags = dedup_merge_topL(all_ids, all_keys,
-                                                  all_flags, L)
-        # expanded entries keep exact distance as ranking key
-        n_keys[..., 0] = torch.where(n_flags[..., 1], n_keys[..., 1],
-                                     n_keys[..., 0])
-
-        # dynamic width phase detection: no improvement => converge phase
-        improved = n_keys[:, 0, 0] < best_before
-        n_stall = torch.where(improved, 0.0, stall + 1.0)
-        n_w_dyn = (torch.where(n_stall > 0,
-                               torch.clamp(w_dyn * 2.0, max=float(dw_max)),
-                               w_dyn)
-                   if dynamic_width else w_dyn)
-
-        # --- a finished query keeps its state ---------------------------
-        ids = torch.where(live[:, None], n_ids, ids)
-        keys = torch.where(live[:, None, None], n_keys, keys)
-        flags = torch.where(live[:, None, None], n_flags, flags)
-        it = it + live.to(torch.int64)
-        w_dyn = torch.where(live, n_w_dyn, w_dyn)
-        stall = torch.where(live, n_stall, stall)
-        steps = (pages_step, is_cached.sum(1).to(torch.float32),
-                 pages_step * n_p, neff, full_step, pq_step)
-        met = [torch.where(live, v + s, v) for v, s in zip(met, steps)]
+    state = _State(
+        ids, keys, flags, torch.zeros(B, dtype=torch.int64, device=dev),
+        full((B,), float(dw_min), torch.float32),
+        *(torch.zeros(B, dtype=torch.float32, device=dev) for _ in range(7)),
+        (torch.zeros((B, num_pages + 1), dtype=torch.bool, device=dev)
+         if track_visited else None),
+        full((B, max_iters, w_cap), -1, torch.int32) if track_trace else None)
+    hop = functools.partial(
+        _hop, L=L, width=width, w_cap=w_cap, spec=spec_now,
+        max_iters=max_iters, n_p=n_p, page_search=page_search,
+        dynamic_width=dynamic_width, dw_max=dw_max)
+    # with no hop to take, the loop only checks; a graph's warm-up would
+    # still run one (and index an empty page trace)
+    graphed = max_iters > 0 and _graphs_on(dev)
+    if graphed:
+        key = _graph_key(dev, B, (page_vids, page_vecs, page_nbrs, vid2page,
+                                  vid2slot, pq_centroids, pq_codes, cached),
+                         static)
+        runner = _GRAPHS.get(key, lambda: _HopGraph(
+            hop, t, state, max_iters, _GRAPHS.pool()))
+        runner.load(t, state)
+    else:
+        runner = _Eager(hop, t, state, max_iters)
+    iters = _run(runner, tracer)
+    if graphed:
+        _GRAPHS.hops += iters
+    st = runner.result()
 
     # final top-k by exact distance (re-rank among exact-known)
-    final_key = torch.where(flags[..., 1], keys[..., 1], INF)
+    final_key = torch.where(st.flags[..., 1], st.keys[..., 1], INF)
     order = torch.sort(final_key, dim=1, stable=True).indices[:, :k]
     topd = torch.gather(final_key, 1, order)
-    topk = torch.where(topd < INF, torch.gather(ids, 1, order), -1)
-    pages_m, cache_m, nread_m, neff_m, full_m, pq_m = met
+    topk = torch.where(topd < INF, torch.gather(st.ids, 1, order), -1)
     out = {"ids": topk.to(torch.int32), "dists": topd,
-           "hops": it.to(torch.int32), "page_reads": pages_m,
-           "cache_hits": cache_m, "n_read": nread_m, "n_eff": neff_m,
-           "full_evals": full_m, "pq_evals": pq_m}
+           "hops": st.it.to(torch.int32), "page_reads": st.pages,
+           "cache_hits": st.cache_hits, "n_read": st.n_read,
+           "n_eff": st.n_eff, "full_evals": st.full_evals,
+           "pq_evals": st.pq_evals}
     if track_visited:
-        out["visited_pages"] = visited[:, :num_pages]
+        out["visited_pages"] = st.visited[:, :num_pages]
     if track_trace:
-        out["page_trace"] = trace
+        out["page_trace"] = st.trace
     return out
 
 
@@ -276,9 +522,11 @@ def query_luts(pq_centroids, queries):
 
 def _pq_device_arrays(pq, device):
     """(centroids f32, codes uint8) of `pq` on `device`, memoized on the PQ
-    object: re-uploading the (n, M) code matrix per batch would dominate."""
+    object: re-uploading the (n, M) code matrix per batch would dominate,
+    and would give each call's hop graph a new key ("cuda" names the
+    current card, as "cuda:0" does)."""
     memo = getattr(pq, "_device_arrays", None)
-    if memo is None or memo[0].device != torch.device(device):
+    if memo is None or not same_device(memo[0].device, torch.device(device)):
         memo = (torch.as_tensor(pq.centroids, dtype=torch.float32,
                                 device=device),
                 torch.as_tensor(pq.codes, dtype=torch.uint8, device=device))

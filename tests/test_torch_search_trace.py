@@ -2,7 +2,8 @@
 tracer=Tracer(clock="host"))`), on a small seeded index built by the port
 on the CPU, for the baseline, DiskANN (vertex cache) and OctopusANN
 (MemGraph, page search, dynamic width) presets: spans nest, the call's
-counts equal what the search did, results are the same with the tracer on
+counts equal what the search did (no hop replayed from a CUDA graph off
+the card), results are the same with the tracer on
 and off, the path builds nothing without one, and the stamps sit on
 torch.profiler's clock."""
 from __future__ import annotations
@@ -100,6 +101,22 @@ def test_hop_iters_equal_the_slowest_query_of_each_batch(traced, preset):
     assert tr.spans[0].args["hop_iters"] == sum(iters)
     assert tr.spans[0].args["batches"] == 3
     assert tr.spans[0].args["queries"] == 32
+    assert set(tr.spans[0].args) == {
+        "queries", "batches", "hop_iters", "mem_iters", "syncs",
+        "graph_hops", "graph_captures"}
+
+
+@pytest.mark.parametrize("preset", PRESETS)
+def test_the_cpu_loop_replays_no_graph(traced, preset):
+    """Off the card every hop runs op by op: no graph is captured or
+    replayed, and the results are the tracer-off ones."""
+    plain, got, tr = traced[preset]
+    assert tr.spans[0].args["hop_iters"] > 0
+    assert tr.spans[0].args["graph_hops"] == 0
+    assert tr.spans[0].args["graph_captures"] == 0
+    np.testing.assert_array_equal(got.ids, plain.ids)
+    np.testing.assert_array_equal(got.dists, plain.dists)
+    np.testing.assert_array_equal(got.hops, plain.hops)
 
 
 @pytest.mark.parametrize("preset", PRESETS)
