@@ -423,7 +423,7 @@ def phase_search(rt, torch, ds, indexes):
             out["trace"] = st.page_trace
             out["index"] = idx
         summ = st.summary(model, d=ds.d, pq_m=cfg.pq_m,
-                          page_bytes=cfg.page_bytes,
+                          page_bytes=idx.layout.page_bytes,
                           pipeline=bool(cfg.pipeline))
         if run == "baseline":
             out["baseline_ids"] = st.ids

@@ -3,7 +3,11 @@ page shuffle) -> cache -> MemGraph, per a SearchConfig. Build costs are
 recorded for the Table-6 reproduction (Finding 6).
 
 The port of src/repro/core/builder.py: the same steps and stats keys, with
-the graph, PQ and MemGraph built on `device` ("cuda" unless named)."""
+the graph, PQ and MemGraph built on `device` ("cuda" unless named). Two
+departures, both where a page holds one record (n_p = 1): page shuffle has
+nothing to co-locate there, so the ids keep their order (no permutation, no
+mapping table; `page_shuffle_skipped`), and a record longer than a page
+spans several (`sectors_per_page`, core/pages.py)."""
 from __future__ import annotations
 
 import time
@@ -45,7 +49,8 @@ def build_index(ds: Dataset, cfg: SearchConfig, *, R: int = 64,
     n_p, _ = records_per_page(cfg.page_bytes, ds.d, vec_bytes, R,
                               cfg.all_in_storage, cfg.pq_m)
     perm = None
-    if cfg.page_shuffle:
+    stats["page_shuffle_skipped"] = bool(cfg.page_shuffle and n_p == 1)
+    if cfg.page_shuffle and n_p > 1:
         sh = ps_mod.shuffle_order(graph, medoid_id, n_p, seed=seed)
         perm = sh["perm"]
         stats.update(sh["stats"])
@@ -56,6 +61,7 @@ def build_index(ds: Dataset, cfg: SearchConfig, *, R: int = 64,
     stats["layout_s"] = time.time() - t0
     stats["overlap_ratio"] = overlap_ratio(layout, graph)
     stats["n_p"] = layout.n_p
+    stats["sectors_per_page"] = layout.sectors_per_page
     stats["disk_bytes"] = layout.disk_bytes
 
     cached = None

@@ -134,7 +134,9 @@ class DiskIndex:
         call's counts in its args: queries, batches, hop_iters (disk-loop
         iterations), mem_iters (MemGraph-loop iterations), syncs,
         graph_hops (disk-loop iterations replayed from a captured CUDA
-        graph) and graph_captures (graphs captured in the call)."""
+        graph), graph_captures (graphs captured in the call), page_bytes
+        and sectors_per_page (the layout's page, core/pages.py) and
+        sectors_read (the call's page reads times sectors_per_page)."""
         cfg = cfg or self.cfg
         if tracer:
             call = tracer.begin("search.call", "search")
@@ -155,5 +157,9 @@ class DiskIndex:
                 "hop_iters": n["search.hop"], "mem_iters": n["mem.hop"],
                 "syncs": n["search.sync"],
                 "graph_hops": hops - graphs0[0],
-                "graph_captures": captures - graphs0[1]})
+                "graph_captures": captures - graphs0[1],
+                "page_bytes": self.layout.page_bytes,
+                "sectors_per_page": self.layout.sectors_per_page,
+                "sectors_read": (int(st.page_reads.sum())
+                                 * self.layout.sectors_per_page)})
         return st

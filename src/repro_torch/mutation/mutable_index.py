@@ -143,7 +143,10 @@ def _copy_layout(lay: PageLayout) -> PageLayout:
         vid2page=lay.vid2page.copy(), vid2slot=lay.vid2slot.copy(),
         page_vids=lay.page_vids.copy(), page_vecs=lay.page_vecs.copy(),
         page_nbrs=lay.page_nbrs.copy(), record_bytes=lay.record_bytes,
-        mapping_bytes=lay.mapping_bytes)
+        mapping_bytes=lay.mapping_bytes,
+        # the reference's layouts (convert.mutable_from_reference) have
+        # one sector a page and no field for it
+        sectors_per_page=getattr(lay, "sectors_per_page", 1))
 
 
 def mutable_state(m) -> dict:

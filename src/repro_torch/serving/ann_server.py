@@ -710,7 +710,7 @@ class AnnServer:
         """A fresh per-run shard aggregation window over `store` (default:
         the server's own store) — fleet replicas pass their own."""
         return _ShardWindow(store or self.store, self.server_cfg.shards,
-                            self.model, self.cfg.page_bytes)
+                            self.model, self.index.layout.page_bytes)
 
     def _batch_times_us(self, stats: QueryStats, depth: int, d: int,
                         store=None, lift: Optional[Tuple[int, int]] = None):
@@ -766,7 +766,8 @@ class AnnServer:
             full_evals=stats.full_evals.astype(np.float64),
             pq_evals=stats.pq_evals.astype(np.float64),
             mem_evals=stats.mem_evals.astype(np.float64),
-            d=d, pq_m=self.cfg.pq_m, page_bytes=self.cfg.page_bytes,
+            d=d, pq_m=self.cfg.pq_m,
+            page_bytes=self.index.layout.page_bytes,
             pipeline=self.cfg.pipeline, page_dedup=dedup,
             prefetch_overlap=overlap,
             shard_pages=sp, shard_depths=sd)
@@ -1130,8 +1131,8 @@ class AnnServer:
         mu = {"inserts": 0, "deletes": 0, "flushes": 0, "compactions": 0,
               "reads": 0, "writes": 0, "io_us": 0.0, "free": 0.0,
               "ins_i": 0, "journal": 0}
-        rd_us = self.model.read_service_us(self.cfg.page_bytes)
-        wr_us = self.model.write_service_us(self.cfg.page_bytes)
+        rd_us = self.model.read_service_us(self.index.layout.page_bytes)
+        wr_us = self.model.write_service_us(self.index.layout.page_bytes)
         compactor = Compactor(self.index, mm) if mm is not None else None
         # durable MutableIndex: journal commits occupy the same background
         # device clock as flush/compaction I/O, and a preceding recover()'s

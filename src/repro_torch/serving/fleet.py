@@ -440,8 +440,8 @@ class FleetServer(AnnServer):
         qidx = (np.where(reads, np.cumsum(reads) - 1, 0)) % len(queries)
         arr_tenant = tenant_of[qidx]
 
-        rd_us = self.model.read_service_us(self.cfg.page_bytes)
-        wr_us = self.model.write_service_us(self.cfg.page_bytes)
+        rd_us = self.model.read_service_us(self.index.layout.page_bytes)
+        wr_us = self.model.write_service_us(self.index.layout.page_bytes)
         compactor = Compactor(self.index, mm) if mm is not None else None
         mu = {"inserts": 0, "deletes": 0, "flushes": 0, "compactions": 0,
               "reads": 0, "writes": 0, "io_us": 0.0, "ins_i": 0}

@@ -103,7 +103,12 @@ def test_hop_iters_equal_the_slowest_query_of_each_batch(traced, preset):
     assert tr.spans[0].args["queries"] == 32
     assert set(tr.spans[0].args) == {
         "queries", "batches", "hop_iters", "mem_iters", "syncs",
-        "graph_hops", "graph_captures"}
+        "graph_hops", "graph_captures", "page_bytes", "sectors_per_page",
+        "sectors_read"}
+    # one 4 KB sector a page here (tests/test_torch_multisector.py: two)
+    assert tr.spans[0].args["page_bytes"] == 4096
+    assert tr.spans[0].args["sectors_per_page"] == 1
+    assert tr.spans[0].args["sectors_read"] == int(plain.page_reads.sum())
 
 
 @pytest.mark.parametrize("preset", PRESETS)
