@@ -127,6 +127,10 @@ class DiskIndex:
                 batched=batched, device=self.device)
         return self._stores[key]
 
+    def _mem_graph_counts(self) -> tuple:
+        return ((0, 0) if self.memgraph is None
+                else self.memgraph.graph_counts())
+
     def search(self, queries: np.ndarray, cfg: Optional[SearchConfig] = None,
                batch: int = 256, tracer=None) -> QueryStats:
         """`tracer` (repro_torch.obs.Tracer(clock="host")) records the call
@@ -134,13 +138,16 @@ class DiskIndex:
         call's counts in its args: queries, batches, hop_iters (disk-loop
         iterations), mem_iters (MemGraph-loop iterations), syncs,
         graph_hops (disk-loop iterations replayed from a captured CUDA
-        graph), graph_captures (graphs captured in the call), page_bytes
+        graph), graph_captures (graphs captured in the call),
+        mem_graph_iters and mem_graph_captures (the same two of the
+        MemGraph loop), page_bytes
         and sectors_per_page (the layout's page, core/pages.py) and
         sectors_read (the call's page reads times sectors_per_page)."""
         cfg = cfg or self.cfg
         if tracer:
             call = tracer.begin("search.call", "search")
             graphs0 = hop_graph_counts()
+            mem0 = self._mem_graph_counts()
         # the cache only serves reads when the search config enables it
         store = self.page_store(use_cache=cfg.cache_frac > 0)
         # facade callers never batch across queries: skip the per-query
@@ -152,12 +159,15 @@ class DiskIndex:
         if tracer:
             n = Counter(s.name for s in tracer.spans[call + 1:])
             hops, captures = hop_graph_counts()
+            mem_hops, mem_captures = self._mem_graph_counts()
             tracer.end(call, args={
                 "queries": len(queries), "batches": n["search.hops"],
                 "hop_iters": n["search.hop"], "mem_iters": n["mem.hop"],
                 "syncs": n["search.sync"],
                 "graph_hops": hops - graphs0[0],
                 "graph_captures": captures - graphs0[1],
+                "mem_graph_iters": mem_hops - mem0[0],
+                "mem_graph_captures": mem_captures - mem0[1],
                 "page_bytes": self.layout.page_bytes,
                 "sectors_per_page": self.layout.sectors_per_page,
                 "sectors_read": (int(st.page_reads.sum())

@@ -12,6 +12,8 @@ One hop (`_hop`) has fixed shapes and no host sync, so on a CUDA device it
 is captured once per shape key as a CUDA graph and replayed for every
 iteration, one launch where op by op it takes some 260-295; off the card
 the same `_hop` runs op by op. The host reads one flag an iteration.
+`hop_loop` runs either path for any such hop; the MemGraph loop
+(core/vamana.py `_mem_hop`) goes through it too, with a cache of its own.
 
 Besides the per-query counters, the search emits `visited_pages` (a
 (B, num_pages) bitmap of the pages each query charged) when
@@ -242,42 +244,43 @@ def _graph_key(device, batch: int, tensors, static: dict) -> tuple:
 
 
 class _Eager:
-    """The disk loop, op by op: the path off the card."""
+    """A loop, op by op: the path off the card. `live(state)` gives the
+    (B,) mask of the queries still open."""
 
-    def __init__(self, hop, t, state, max_iters):
+    def __init__(self, hop, t, state, live):
         self.hop, self.t, self.state = hop, t, state
-        self.max_iters = max_iters
-        self.live = _live(state, max_iters)
+        self.live_of = live
+        self.live = live(state)
 
     def more(self) -> bool:
         return bool(self.live.any())
 
     def step(self) -> None:
         self.state = self.hop(self.t, self.state, self.live)
-        self.live = _live(self.state, self.max_iters)
+        self.live = self.live_of(self.state)
 
     def result(self):
         return self.state
 
 
 class _HopGraph:
-    """One disk hop captured as a CUDA graph over static buffers: copies of
-    the batch's inputs and of the state. A replay maps the state buffers to
-    the next state in place, then writes the next live mask and its any()
-    into `go`, so the host reads one flag an iteration. The graph reads the
-    store's tensors at the addresses its cache key names and holds none of
-    them. Warm-up and capture run on the buffers, never on a call's state,
-    so capturing advances no query."""
+    """One hop captured as a CUDA graph over static buffers: copies of the
+    inputs named in `copied` (what a call brings anew) and of the state (a
+    NamedTuple of tensors, or None where unused). A replay maps the state
+    buffers to the next state in place, then writes the next live mask and
+    its any() into `go`, so the host reads one flag an iteration. The graph
+    reads the other inputs at the addresses its cache key names and holds
+    none of them. Warm-up and capture run on the buffers, never on a
+    call's state, so capturing advances no query."""
 
     WARMUP = 3
 
-    def __init__(self, hop, t, state, max_iters, pool):
-        self.max_iters = max_iters
-        self.inputs = {f: getattr(t, f).clone()
-                       for f in ("q", "lut_flat", "code_off", "rows", "cols")}
-        self.state = _State(*(None if x is None else x.clone()
-                              for x in state))
-        self.live = _live(self.state, max_iters)
+    def __init__(self, hop, t, state, live, copied, pool):
+        self.live_of = live
+        self.inputs = {f: getattr(t, f).clone() for f in copied}
+        self.state = type(state)(*(None if x is None else x.clone()
+                                   for x in state))
+        self.live = live(self.state)
         self.go = self.live.any()
         ins = t._replace(**self.inputs)
 
@@ -305,7 +308,7 @@ class _HopGraph:
         return graph
 
     def _check(self) -> None:
-        self.live.copy_(_live(self.state, self.max_iters))
+        self.live.copy_(self.live_of(self.state))
         self.go.copy_(self.live.any())
 
     def load(self, t, state) -> None:
@@ -326,8 +329,8 @@ class _HopGraph:
     def result(self):
         """The final state, copied out of the buffers the next call
         overwrites."""
-        return _State(*(None if x is None else x.clone()
-                        for x in self.state))
+        return type(self.state)(*(None if x is None else x.clone()
+                                  for x in self.state))
 
 
 class _HopGraphs:
@@ -369,11 +372,11 @@ def hop_graph_counts() -> tuple:
     return _GRAPHS.hops, _GRAPHS.captures
 
 
-def _run(runner, tracer) -> int:
+def _run(runner, tracer, span="search.hop") -> int:
     """Steps `runner` while a query is live; returns the iterations. A
     host-clock `tracer` gets a `search.sync` span for each loop check's
-    host sync and a `search.hop` span for each iteration (its work, then
-    the next check and its sync)."""
+    host sync and a `span` span for each iteration (its work, then the
+    next check and its sync)."""
     iters, hop = 0, None
     while True:
         if tracer:
@@ -386,9 +389,28 @@ def _run(runner, tracer) -> int:
         if not go:
             return iters
         if tracer:
-            hop = tracer.begin("search.hop", "search")
+            hop = tracer.begin(span, "search")
         runner.step()
         iters += 1
+
+
+def hop_loop(hop, t, state, live, *, graphs=None, key=None, copied=(),
+             tracer=None, span="search.hop"):
+    """Runs `hop(t, state, live)` while `live(state)` has a query open and
+    returns the final state. With `graphs` (a _HopGraphs) each iteration
+    replays the graph under `key`, captured on a miss with the inputs named
+    in `copied` held in buffers; without, the hop runs op by op. A
+    host-clock `tracer` gets the loop's spans (`_run`)."""
+    if graphs is None:
+        runner = _Eager(hop, t, state, live)
+    else:
+        runner = graphs.get(key, lambda: _HopGraph(
+            hop, t, state, live, copied, graphs.pool()))
+        runner.load(t, state)
+    iters = _run(runner, tracer, span)
+    if graphs is not None:
+        graphs.hops += iters
+    return runner.result()
 
 
 def _search_batch(page_vids, page_vecs, page_nbrs, vid2page, vid2slot,
@@ -456,19 +478,14 @@ def _search_batch(page_vids, page_vecs, page_nbrs, vid2page, vid2slot,
     # with no hop to take, the loop only checks; a graph's warm-up would
     # still run one (and index an empty page trace)
     graphed = max_iters > 0 and _graphs_on(dev)
-    if graphed:
-        key = _graph_key(dev, B, (page_vids, page_vecs, page_nbrs, vid2page,
-                                  vid2slot, pq_centroids, pq_codes, cached),
-                         static)
-        runner = _GRAPHS.get(key, lambda: _HopGraph(
-            hop, t, state, max_iters, _GRAPHS.pool()))
-        runner.load(t, state)
-    else:
-        runner = _Eager(hop, t, state, max_iters)
-    iters = _run(runner, tracer)
-    if graphed:
-        _GRAPHS.hops += iters
-    st = runner.result()
+    key = (_graph_key(dev, B, (page_vids, page_vecs, page_nbrs, vid2page,
+                               vid2slot, pq_centroids, pq_codes, cached),
+                      static) if graphed else None)
+    st = hop_loop(hop, t, state,
+                  functools.partial(_live, max_iters=max_iters),
+                  graphs=_GRAPHS if graphed else None, key=key,
+                  copied=("q", "lut_flat", "code_off", "rows", "cols"),
+                  tracer=tracer)
 
     # final top-k by exact distance (re-rank among exact-known)
     final_key = torch.where(st.flags[..., 1], st.keys[..., 1], INF)

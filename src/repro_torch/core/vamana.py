@@ -11,16 +11,22 @@ start. Deterministic given the seed, on the card too: the one scatter with
 colliding targets (reverse edges) resolves its collisions explicitly.
 
 Also exports `beam_search_mem`, the in-memory best-first search used for
-build and for the MemGraph navigation layer.
+build and for the MemGraph navigation layer. One of its iterations
+(`_mem_hop`) has fixed shapes and no host sync; for a caller whose vectors
+and graph stay on the card (the MemGraph), it replays as a captured CUDA
+graph, and everywhere else it runs op by op.
 """
 from __future__ import annotations
 
+import functools
 import time
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from repro_torch._device import resolve_device
+from repro_torch.core.search_kernel import _graph_key, hop_loop
 from repro_torch.core.searchutils import (INF, SENTINEL, dedup_merge_topL,
                                           sq_dists, top_w_unexpanded)
 
@@ -34,16 +40,104 @@ def medoid(x: np.ndarray) -> int:
 # in-memory best-first / beam search
 
 
+class _MemInputs(NamedTuple):
+    """What a MemGraph hop reads besides the state: the graph's vectors X
+    (n, d) f32 and adjacency G (n, R) int64 (read in place), the queries q
+    (B, d) f32, and span = arange(width)."""
+    X: torch.Tensor
+    G: torch.Tensor
+    q: torch.Tensor
+    span: torch.Tensor
+
+
+class _MemState(NamedTuple):
+    """The state a MemGraph hop maps to the next, each (B, ...): the
+    candidate list (ids (B, L); keys (B, L, 1) distances; flags (B, L, 1)
+    expanded), the visited window (vis_ids, vis_d (B, V)), iterations
+    taken (it) and the visited count (vn)."""
+    ids: torch.Tensor
+    keys: torch.Tensor
+    flags: torch.Tensor
+    vis_ids: torch.Tensor
+    vis_d: torch.Tensor
+    it: torch.Tensor
+    vn: torch.Tensor
+
+
+def _mem_live(st, max_iters):
+    """(B,) bool: the query has an unexpanded candidate and hops left."""
+    return ((st.ids < SENTINEL) & ~st.flags[..., 0]).any(1) & (
+        st.it < max_iters)
+
+
+def _mem_hop(t, st, live, *, L, width, visited_cap):
+    """One MemGraph hop of every live query; a query that is not live keeps
+    its state. Fixed shapes, no host sync, so a CUDA graph can replay it."""
+    X, G, q = t.X, t.G, t.q
+    B, n = q.shape[0], X.shape[0]
+    ids, keys, flags = st.ids, st.keys, st.flags
+    fidx, active = top_w_unexpanded(keys[..., 0], flags[..., 0],
+                                    ids < SENTINEL, width)
+    fids = torch.where(active, torch.gather(ids, 1, fidx), SENTINEL)
+    # record visited (expanded) nodes; like dynamic_update_slice, the
+    # window start is clamped so the window fits
+    pos = st.vn.clamp(0, visited_cap - width)[:, None] + t.span
+    n_vis_ids = st.vis_ids.scatter(1, pos, fids)
+    n_vis_d = st.vis_d.scatter(1, pos, torch.where(
+        active, torch.gather(keys[..., 0], 1, fidx), INF))
+    exp = flags[..., 0].scatter(
+        1, fidx, torch.gather(flags[..., 0], 1, fidx) | active)
+    # expand neighbors
+    nbrs = G[fids.clamp(max=n - 1)]                           # (B, w, R)
+    nbrs = torch.where(active[..., None] & (nbrs >= 0), nbrs, SENTINEL)
+    nflat = nbrs.reshape(B, -1)
+    nd = torch.where(nflat < SENTINEL,
+                     sq_dists(q, X[nflat.clamp(max=n - 1)]), INF)
+    all_ids = torch.cat([ids, nflat], 1)
+    all_keys = torch.cat([keys[..., 0], nd], 1)[..., None]
+    all_flags = torch.cat([exp, torch.zeros_like(nflat, dtype=torch.bool)],
+                          1)[..., None]
+    n_ids, n_keys, n_flags = dedup_merge_topL(all_ids, all_keys, all_flags,
+                                              L)
+    # a finished query keeps its state
+    return _MemState(torch.where(live[:, None], n_ids, ids),
+                     torch.where(live[:, None, None], n_keys, keys),
+                     torch.where(live[:, None, None], n_flags, flags),
+                     torch.where(live[:, None], n_vis_ids, st.vis_ids),
+                     torch.where(live[:, None], n_vis_d, st.vis_d),
+                     st.it + live.to(torch.int64),
+                     st.vn + width * live.to(torch.int64))
+
+
+def _graphs_on(device) -> bool:
+    """Whether the MemGraph loop replays captured CUDA graphs on
+    `device`."""
+    return device.type == "cuda"
+
+
+def _mem_graph_key(X, G, batch: int, *, L, width, max_iters, visited_cap):
+    """The cache key of a MemGraph hop's graph (search_kernel._graph_key):
+    the device, the batch size, X and G as the graph reads them in place,
+    and the static arguments."""
+    return _graph_key(X.device, batch, (X, G),
+                      dict(L=L, width=width, max_iters=max_iters,
+                           visited_cap=visited_cap))
+
+
 def _beam_search_mem_batch(X, G, entries, entry_valid, q, *, L, width,
-                           max_iters, visited_cap, tracer=None):
+                           max_iters, visited_cap, graphs=None, tracer=None):
     """Batched over queries; tensors on one device. X (n, d) f32; G (n, R)
     int64 (-1 padded); entries (B, E) int64; entry_valid (B, E) bool;
     q (B, d) f32. Returns dict(ids (B, L), dists (B, L), visited_ids
     (B, V), visited_dists, hops (B,)). A finished query keeps its state
-    while the others go on, as under the reference's vmap. A host-clock
-    `tracer` gets a `search.sync` span for each loop check's host sync and
-    a `mem.hop` span for each iteration (its work, then the next check and
-    its sync)."""
+    while the others go on, as under the reference's vmap. `graphs` (a
+    search_kernel._HopGraphs) is for a caller whose X and G stay on the
+    device from call to call: on a CUDA device each iteration then replays
+    a graph of `_mem_hop` from it, captured once per `_mem_graph_key`;
+    otherwise the hop runs op by op. A host-clock `tracer` gets a
+    `search.sync` span for each loop check's host sync and a `mem.hop`
+    span for each iteration (its work, then the next check and its
+    sync)."""
     dev = q.device
     B, n = q.shape[0], X.shape[0]
     d0 = torch.where(entry_valid,
@@ -56,69 +150,36 @@ def _beam_search_mem_batch(X, G, entries, entry_valid, q, *, L, width,
     flags = torch.zeros((B, ids.shape[1], 1), dtype=torch.bool, device=dev)
     ids, keys, flags = dedup_merge_topL(ids, keys, flags, L)
 
-    vis_ids = torch.full((B, visited_cap), SENTINEL, dtype=torch.int64,
-                         device=dev)
-    vis_d = torch.full((B, visited_cap), INF, device=dev)
-    it = torch.zeros(B, dtype=torch.int64, device=dev)
-    vn = torch.zeros(B, dtype=torch.int64, device=dev)
-    span = torch.arange(width, device=dev)
-
-    hop = None
-    while True:
-        live = ((ids < SENTINEL) & ~flags[..., 0]).any(1) & (it < max_iters)
-        if tracer:
-            sync = tracer.begin("search.sync", "search")
-        go = bool(live.any())
-        if tracer:
-            tracer.end(sync)
-            if hop is not None:
-                tracer.end(hop)
-        if not go:
-            break
-        if tracer:
-            hop = tracer.begin("mem.hop", "search")
-        fidx, active = top_w_unexpanded(keys[..., 0], flags[..., 0],
-                                        ids < SENTINEL, width)
-        fids = torch.where(active, torch.gather(ids, 1, fidx), SENTINEL)
-        # record visited (expanded) nodes; like dynamic_update_slice, the
-        # window start is clamped so the window fits
-        pos = vn.clamp(0, visited_cap - width)[:, None] + span
-        n_vis_ids = vis_ids.scatter(1, pos, fids)
-        n_vis_d = vis_d.scatter(1, pos, torch.where(
-            active, torch.gather(keys[..., 0], 1, fidx), INF))
-        exp = flags[..., 0].scatter(
-            1, fidx, torch.gather(flags[..., 0], 1, fidx) | active)
-        # expand neighbors
-        nbrs = G[fids.clamp(max=n - 1)]                       # (B, w, R)
-        nbrs = torch.where(active[..., None] & (nbrs >= 0), nbrs, SENTINEL)
-        nflat = nbrs.reshape(B, -1)
-        nd = torch.where(nflat < SENTINEL,
-                         sq_dists(q, X[nflat.clamp(max=n - 1)]), INF)
-        all_ids = torch.cat([ids, nflat], 1)
-        all_keys = torch.cat([keys[..., 0], nd], 1)[..., None]
-        all_flags = torch.cat([exp, torch.zeros_like(nflat, dtype=torch.bool)],
-                              1)[..., None]
-        n_ids, n_keys, n_flags = dedup_merge_topL(all_ids, all_keys,
-                                                  all_flags, L)
-        # a finished query keeps its state
-        ids = torch.where(live[:, None], n_ids, ids)
-        keys = torch.where(live[:, None, None], n_keys, keys)
-        flags = torch.where(live[:, None, None], n_flags, flags)
-        vis_ids = torch.where(live[:, None], n_vis_ids, vis_ids)
-        vis_d = torch.where(live[:, None], n_vis_d, vis_d)
-        it = it + live.to(torch.int64)
-        vn = vn + width * live.to(torch.int64)
-    return {"ids": ids, "dists": keys[..., 0], "visited_ids": vis_ids,
-            "visited_dists": vis_d, "hops": it}
+    state = _MemState(
+        ids, keys, flags,
+        torch.full((B, visited_cap), SENTINEL, dtype=torch.int64, device=dev),
+        torch.full((B, visited_cap), INF, device=dev),
+        torch.zeros(B, dtype=torch.int64, device=dev),
+        torch.zeros(B, dtype=torch.int64, device=dev))
+    t = _MemInputs(X, G, q, torch.arange(width, device=dev))
+    graphed = graphs is not None and max_iters > 0 and _graphs_on(dev)
+    st = hop_loop(
+        functools.partial(_mem_hop, L=L, width=width,
+                          visited_cap=visited_cap),
+        t, state, functools.partial(_mem_live, max_iters=max_iters),
+        graphs=graphs if graphed else None,
+        key=(_mem_graph_key(X, G, B, L=L, width=width, max_iters=max_iters,
+                            visited_cap=visited_cap) if graphed else None),
+        copied=("q", "span"), tracer=tracer, span="mem.hop")
+    return {"ids": st.ids, "dists": st.keys[..., 0],
+            "visited_ids": st.vis_ids, "visited_dists": st.vis_d,
+            "hops": st.it}
 
 
 def beam_search_mem(X, G, entry: int, q, L=64, width=1, max_iters=None,
-                    visited_cap=None, device=None, tracer=None) -> dict:
+                    visited_cap=None, device=None, graphs=None,
+                    tracer=None) -> dict:
     """q: (B, d). Single fixed entry point (the medoid). X, G and q are
     numpy arrays or tensors; the search runs on `device` and returns numpy
-    arrays. A host-clock `tracer` gets `search.upload` and
-    `search.readback` spans around the moves to and from the device, and
-    the loop's spans (`_beam_search_mem_batch`)."""
+    arrays. `graphs` is the caller's cache of captured hops, for X and G
+    tensors it keeps on `device` (`_beam_search_mem_batch`). A host-clock
+    `tracer` gets `search.upload` and `search.readback` spans around the
+    moves to and from the device, and the loop's spans."""
     device = resolve_device(device)
     if tracer:
         span = tracer.begin("search.upload", "search")
@@ -134,7 +195,8 @@ def beam_search_mem(X, G, entry: int, q, L=64, width=1, max_iters=None,
         tracer.end(span)
     res = _beam_search_mem_batch(X, G, entries, valid, q, L=L, width=width,
                                  max_iters=max_iters,
-                                 visited_cap=visited_cap, tracer=tracer)
+                                 visited_cap=visited_cap, graphs=graphs,
+                                 tracer=tracer)
     if tracer:
         span = tracer.begin("search.readback", "search")
     res = {k: v.cpu().numpy() for k, v in res.items()}

@@ -103,7 +103,8 @@ def test_hop_iters_equal_the_slowest_query_of_each_batch(traced, preset):
     assert tr.spans[0].args["queries"] == 32
     assert set(tr.spans[0].args) == {
         "queries", "batches", "hop_iters", "mem_iters", "syncs",
-        "graph_hops", "graph_captures", "page_bytes", "sectors_per_page",
+        "graph_hops", "graph_captures", "mem_graph_iters",
+        "mem_graph_captures", "page_bytes", "sectors_per_page",
         "sectors_read"}
     # one 4 KB sector a page here (tests/test_torch_multisector.py: two)
     assert tr.spans[0].args["page_bytes"] == 4096
@@ -113,12 +114,14 @@ def test_hop_iters_equal_the_slowest_query_of_each_batch(traced, preset):
 
 @pytest.mark.parametrize("preset", PRESETS)
 def test_the_cpu_loop_replays_no_graph(traced, preset):
-    """Off the card every hop runs op by op: no graph is captured or
-    replayed, and the results are the tracer-off ones."""
+    """Off the card every hop of both loops runs op by op: no graph is
+    captured or replayed, and the results are the tracer-off ones."""
     plain, got, tr = traced[preset]
     assert tr.spans[0].args["hop_iters"] > 0
     assert tr.spans[0].args["graph_hops"] == 0
     assert tr.spans[0].args["graph_captures"] == 0
+    assert tr.spans[0].args["mem_graph_iters"] == 0
+    assert tr.spans[0].args["mem_graph_captures"] == 0
     np.testing.assert_array_equal(got.ids, plain.ids)
     np.testing.assert_array_equal(got.dists, plain.dists)
     np.testing.assert_array_equal(got.hops, plain.hops)
