@@ -19,7 +19,8 @@ from typing import Optional
 import numpy as np
 
 from repro_torch._device import resolve_device
-from repro_torch.core.search_kernel import hop_graph_counts, search_batched
+from repro_torch.core import search_kernel
+from repro_torch.core.hop_loop import HopGraphs
 from repro_torch.core.stats import QueryStats, SearchResult  # noqa: F401
 from repro_torch.io import build_store
 
@@ -127,10 +128,6 @@ class DiskIndex:
                 batched=batched, device=self.device)
         return self._stores[key]
 
-    def _mem_graph_counts(self) -> tuple:
-        return ((0, 0) if self.memgraph is None
-                else self.memgraph.graph_counts())
-
     def search(self, queries: np.ndarray, cfg: Optional[SearchConfig] = None,
                batch: int = 256, tracer=None) -> QueryStats:
         """`tracer` (repro_torch.obs.Tracer(clock="host")) records the call
@@ -146,28 +143,31 @@ class DiskIndex:
         cfg = cfg or self.cfg
         if tracer:
             call = tracer.begin("search.call", "search")
-            graphs0 = hop_graph_counts()
-            mem0 = self._mem_graph_counts()
+            # the two loops' graph caches (core/hop_loop.py)
+            caches = (search_kernel.GRAPHS,
+                      HopGraphs() if self.memgraph is None
+                      else self.memgraph.graphs)
+            before = [c.counts() for c in caches]
         # the cache only serves reads when the search config enables it
         store = self.page_store(use_cache=cfg.cache_frac > 0)
         # facade callers never batch across queries: skip the per-query
         # visited-page bitmaps
-        st = search_batched(store, self.pq, cfg, queries,
-                            medoid=self.medoid, memgraph=self.memgraph,
-                            batch=batch, collect_visited=False,
-                            tracer=tracer)
+        st = search_kernel.search_batched(
+            store, self.pq, cfg, queries, medoid=self.medoid,
+            memgraph=self.memgraph, batch=batch, collect_visited=False,
+            tracer=tracer)
         if tracer:
             n = Counter(s.name for s in tracer.spans[call + 1:])
-            hops, captures = hop_graph_counts()
-            mem_hops, mem_captures = self._mem_graph_counts()
+            (hops, captures), (mem_hops, mem_captures) = (
+                [now - then for now, then in zip(c.counts(), b)]
+                for c, b in zip(caches, before))
             tracer.end(call, args={
                 "queries": len(queries), "batches": n["search.hops"],
                 "hop_iters": n["search.hop"], "mem_iters": n["mem.hop"],
                 "syncs": n["search.sync"],
-                "graph_hops": hops - graphs0[0],
-                "graph_captures": captures - graphs0[1],
-                "mem_graph_iters": mem_hops - mem0[0],
-                "mem_graph_captures": mem_captures - mem0[1],
+                "graph_hops": hops, "graph_captures": captures,
+                "mem_graph_iters": mem_hops,
+                "mem_graph_captures": mem_captures,
                 "page_bytes": self.layout.page_bytes,
                 "sectors_per_page": self.layout.sectors_per_page,
                 "sectors_read": (int(st.page_reads.sum())

@@ -6,8 +6,8 @@ disk-resident search — shortening convergence paths (Finding 3).
 The port of src/repro/core/memgraph.py; the navigation search is the port's
 `beam_search_mem`, on the MemGraph's device. The MemGraph uploads its vectors
 and graph once and keeps them there, so it also keeps the navigation hops
-captured over them (on the card, one CUDA graph a batch size, replayed every
-iteration of every call of that size)."""
+captured over them in `graphs` (on the card, one CUDA graph a batch size,
+replayed every iteration of every call of that size; core/hop_loop.py)."""
 from __future__ import annotations
 
 import dataclasses
@@ -18,7 +18,7 @@ import torch
 
 from repro_torch._device import resolve_device
 from repro_torch.core import vamana
-from repro_torch.core.search_kernel import _HopGraphs
+from repro_torch.core.hop_loop import HopGraphs
 
 
 @dataclasses.dataclass
@@ -31,8 +31,8 @@ class MemGraph:
     device: torch.device     # where the navigation search runs
     _dev: Optional[tuple] = dataclasses.field(default=None, repr=False,
                                               compare=False)
-    _graphs: Optional[_HopGraphs] = dataclasses.field(
-        default=None, repr=False, compare=False)
+    graphs: HopGraphs = dataclasses.field(
+        default_factory=HopGraphs, repr=False, compare=False)
 
     @property
     def memory_bytes(self) -> int:
@@ -49,18 +49,6 @@ class MemGraph:
                                 device=self.device))
         return self._dev
 
-    def _hop_graphs(self) -> _HopGraphs:
-        """The captured navigation hops over `_device_arrays()`."""
-        if self._graphs is None:
-            self._graphs = _HopGraphs()
-        return self._graphs
-
-    def graph_counts(self) -> tuple:
-        """(navigation iterations replayed from a captured graph, graphs
-        captured) over this MemGraph's life."""
-        g = self._graphs
-        return (0, 0) if g is None else (g.hops, g.captures)
-
     def entry_points(self, queries: np.ndarray, n_entries: int = 4,
                      L: int = 32, width: int = 2, tracer=None) -> dict:
         """Returns dict(entries (B, n_entries) int32 vids in the FULL id
@@ -69,7 +57,7 @@ class MemGraph:
         X, G = self._device_arrays()
         res = vamana.beam_search_mem(X, G, self.medoid, queries, L=L,
                                      width=width, device=self.device,
-                                     graphs=self._hop_graphs(), tracer=tracer)
+                                     graphs=self.graphs, tracer=tracer)
         ids = res["ids"][:, :n_entries]
         valid = ids < self.vectors.shape[0]
         entries = np.where(valid, self.sample_ids[np.minimum(

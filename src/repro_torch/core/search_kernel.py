@@ -11,9 +11,9 @@ it. The loop runs at most `max_iters` hops and stops once no query is open.
 One hop (`_hop`) has fixed shapes and no host sync, so on a CUDA device it
 is captured once per shape key as a CUDA graph and replayed for every
 iteration, one launch where op by op it takes some 260-295; off the card
-the same `_hop` runs op by op. The host reads one flag an iteration.
-`hop_loop` runs either path for any such hop; the MemGraph loop
-(core/vamana.py `_mem_hop`) goes through it too, with a cache of its own.
+the same `_hop` runs op by op. The host reads one flag an iteration. The
+loop runner, which the MemGraph loop (core/vamana.py `_mem_hop`) shares,
+is core/hop_loop.py; this module owns the disk loop's cache, `GRAPHS`.
 
 Besides the per-query counters, the search emits `visited_pages` (a
 (B, num_pages) bitmap of the pages each query charged) when
@@ -42,13 +42,13 @@ from __future__ import annotations
 import functools
 import os
 import time
-from collections import OrderedDict
 from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from repro_torch._device import same_device
+from repro_torch.core.hop_loop import HopGraphs, hop_loop
 from repro_torch.core.searchutils import (INF, SENTINEL, dedup_merge_topL,
                                           sq_dists, top_w_unexpanded)
 from repro_torch.core.stats import QueryStats
@@ -227,190 +227,7 @@ def _hop(t, st, live, *, L, width, w_cap, spec, max_iters, n_p,
                   *met, st.visited, st.trace)
 
 
-def _graphs_on(device) -> bool:
-    """Whether the disk loop replays captured CUDA graphs on `device`."""
-    return device.type == "cuda"
-
-
-def _graph_key(device, batch: int, tensors, static: dict) -> tuple:
-    """The cache key of a hop's graph: the device, the batch size, the
-    address, shape, strides and dtype of every tensor the graph reads in
-    place, and every static argument. A store whose tensors are uploaded
-    anew gets another key, so no graph replays a stale address."""
-    return (str(device), batch,
-            tuple((x.data_ptr(), tuple(x.shape), x.stride(), x.dtype)
-                  for x in tensors),
-            tuple(static.items()))
-
-
-class _Eager:
-    """A loop, op by op: the path off the card. `live(state)` gives the
-    (B,) mask of the queries still open."""
-
-    def __init__(self, hop, t, state, live):
-        self.hop, self.t, self.state = hop, t, state
-        self.live_of = live
-        self.live = live(state)
-
-    def more(self) -> bool:
-        return bool(self.live.any())
-
-    def step(self) -> None:
-        self.state = self.hop(self.t, self.state, self.live)
-        self.live = self.live_of(self.state)
-
-    def result(self):
-        return self.state
-
-
-class _HopGraph:
-    """One hop captured as a CUDA graph over static buffers: copies of the
-    inputs named in `copied` (what a call brings anew) and of the state (a
-    NamedTuple of tensors, or None where unused). A replay maps the state
-    buffers to the next state in place, then writes the next live mask and
-    its any() into `go`, so the host reads one flag an iteration. The graph
-    reads the other inputs at the addresses its cache key names and holds
-    none of them. Warm-up and capture run on the buffers, never on a
-    call's state, so capturing advances no query."""
-
-    WARMUP = 3
-
-    def __init__(self, hop, t, state, live, copied, pool):
-        self.live_of = live
-        self.inputs = {f: getattr(t, f).clone() for f in copied}
-        self.state = type(state)(*(None if x is None else x.clone()
-                                   for x in state))
-        self.live = live(self.state)
-        self.go = self.live.any()
-        ins = t._replace(**self.inputs)
-
-        def step():
-            new = hop(ins, self.state, self.live)
-            for buf, x in zip(self.state, new):
-                if x is not buf:
-                    buf.copy_(x)
-            self._check()
-
-        self.graph = self._capture(step, t.q.device, pool)
-
-    @staticmethod
-    def _capture(step, device, pool):
-        """`step` warmed up on a side stream, then captured."""
-        side = torch.cuda.Stream(device)
-        side.wait_stream(torch.cuda.current_stream(device))
-        with torch.cuda.stream(side):
-            for _ in range(_HopGraph.WARMUP):
-                step()
-        torch.cuda.current_stream(device).wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, pool=pool):
-            step()
-        return graph
-
-    def _check(self) -> None:
-        self.live.copy_(self.live_of(self.state))
-        self.go.copy_(self.live.any())
-
-    def load(self, t, state) -> None:
-        """Copy a call's inputs and initial state into the buffers."""
-        for f, buf in self.inputs.items():
-            buf.copy_(getattr(t, f))
-        for buf, x in zip(self.state, state):
-            if buf is not None:
-                buf.copy_(x)
-        self._check()
-
-    def more(self) -> bool:
-        return bool(self.go)
-
-    def step(self) -> None:
-        self.graph.replay()
-
-    def result(self):
-        """The final state, copied out of the buffers the next call
-        overwrites."""
-        return type(self.state)(*(None if x is None else x.clone()
-                                  for x in self.state))
-
-
-class _HopGraphs:
-    """The captured hops, one a cache key, the least recently used dropped
-    past `capacity`; all share one memory pool, and one replays at a time.
-    `hops` counts the iterations replayed from a graph, `captures` the
-    graphs captured."""
-
-    def __init__(self, capacity: int = 64):
-        self.capacity = capacity
-        self.graphs: OrderedDict = OrderedDict()
-        self.hops = 0
-        self.captures = 0
-        self._pool = None
-
-    def pool(self):
-        if self._pool is None:
-            self._pool = torch.cuda.graph_pool_handle()
-        return self._pool
-
-    def get(self, key, capture):
-        """The graph under `key`, made by `capture()` on a miss."""
-        graph = self.graphs.pop(key, None)
-        if graph is None:
-            while len(self.graphs) >= self.capacity:
-                self.graphs.popitem(last=False)
-            graph = capture()
-            self.captures += 1
-        self.graphs[key] = graph
-        return graph
-
-
-_GRAPHS = _HopGraphs()
-
-
-def hop_graph_counts() -> tuple:
-    """(hops replayed from a captured graph, graphs captured) in this
-    process so far."""
-    return _GRAPHS.hops, _GRAPHS.captures
-
-
-def _run(runner, tracer, span="search.hop") -> int:
-    """Steps `runner` while a query is live; returns the iterations. A
-    host-clock `tracer` gets a `search.sync` span for each loop check's
-    host sync and a `span` span for each iteration (its work, then the
-    next check and its sync)."""
-    iters, hop = 0, None
-    while True:
-        if tracer:
-            sync = tracer.begin("search.sync", "search")
-        go = runner.more()
-        if tracer:
-            tracer.end(sync)
-            if hop is not None:
-                tracer.end(hop)
-        if not go:
-            return iters
-        if tracer:
-            hop = tracer.begin(span, "search")
-        runner.step()
-        iters += 1
-
-
-def hop_loop(hop, t, state, live, *, graphs=None, key=None, copied=(),
-             tracer=None, span="search.hop"):
-    """Runs `hop(t, state, live)` while `live(state)` has a query open and
-    returns the final state. With `graphs` (a _HopGraphs) each iteration
-    replays the graph under `key`, captured on a miss with the inputs named
-    in `copied` held in buffers; without, the hop runs op by op. A
-    host-clock `tracer` gets the loop's spans (`_run`)."""
-    if graphs is None:
-        runner = _Eager(hop, t, state, live)
-    else:
-        runner = graphs.get(key, lambda: _HopGraph(
-            hop, t, state, live, copied, graphs.pool()))
-        runner.load(t, state)
-    iters = _run(runner, tracer, span)
-    if graphs is not None:
-        graphs.hops += iters
-    return runner.result()
+GRAPHS = HopGraphs()   # the disk loop's captured hops, for the process
 
 
 def _search_batch(page_vids, page_vecs, page_nbrs, vid2page, vid2slot,
@@ -423,8 +240,8 @@ def _search_batch(page_vids, page_vecs, page_nbrs, vid2page, vid2slot,
     (M, 256, dsub) f32; pq_codes (n, M) uint8; cached (n,) bool; q (B, d)
     f32; entries (B, E) int64; entry_valid (B, E) bool. Returns a dict of
     (B, ...) tensors. On a CUDA device each loop iteration replays the
-    batch's captured hop (`_HopGraphs`); elsewhere it runs op by op. A
-    host-clock `tracer` gets the loop's spans (`_run`)."""
+    batch's captured hop from `GRAPHS`; elsewhere it runs op by op
+    (core/hop_loop.py). A host-clock `tracer` gets the loop's spans."""
     static = dict(k=k, L=L, width=width, max_iters=max_iters, n_p=n_p,
                   page_search=page_search, dynamic_width=dynamic_width,
                   dw_min=dw_min, dw_max=dw_max, pipeline=pipeline, spec=spec,
@@ -475,15 +292,12 @@ def _search_batch(page_vids, page_vecs, page_nbrs, vid2page, vid2slot,
         _hop, L=L, width=width, w_cap=w_cap, spec=spec_now,
         max_iters=max_iters, n_p=n_p, page_search=page_search,
         dynamic_width=dynamic_width, dw_max=dw_max)
-    # with no hop to take, the loop only checks; a graph's warm-up would
-    # still run one (and index an empty page trace)
-    graphed = max_iters > 0 and _graphs_on(dev)
-    key = (_graph_key(dev, B, (page_vids, page_vecs, page_nbrs, vid2page,
-                               vid2slot, pq_centroids, pq_codes, cached),
-                      static) if graphed else None)
     st = hop_loop(hop, t, state,
                   functools.partial(_live, max_iters=max_iters),
-                  graphs=_GRAPHS if graphed else None, key=key,
+                  graphs=GRAPHS,
+                  reads=(page_vids, page_vecs, page_nbrs, vid2page, vid2slot,
+                         pq_centroids, pq_codes, cached),
+                  static=static,
                   copied=("q", "lut_flat", "code_off", "rows", "cols"),
                   tracer=tracer)
 

@@ -14,7 +14,8 @@ Also exports `beam_search_mem`, the in-memory best-first search used for
 build and for the MemGraph navigation layer. One of its iterations
 (`_mem_hop`) has fixed shapes and no host sync; for a caller whose vectors
 and graph stay on the card (the MemGraph), it replays as a captured CUDA
-graph, and everywhere else it runs op by op.
+graph, and everywhere else it runs op by op. The loop runner is
+core/hop_loop.py, shared with the disk loop.
 """
 from __future__ import annotations
 
@@ -26,7 +27,7 @@ import numpy as np
 import torch
 
 from repro_torch._device import resolve_device
-from repro_torch.core.search_kernel import _graph_key, hop_loop
+from repro_torch.core.hop_loop import hop_loop
 from repro_torch.core.searchutils import (INF, SENTINEL, dedup_merge_topL,
                                           sq_dists, top_w_unexpanded)
 
@@ -109,21 +110,6 @@ def _mem_hop(t, st, live, *, L, width, visited_cap):
                      st.vn + width * live.to(torch.int64))
 
 
-def _graphs_on(device) -> bool:
-    """Whether the MemGraph loop replays captured CUDA graphs on
-    `device`."""
-    return device.type == "cuda"
-
-
-def _mem_graph_key(X, G, batch: int, *, L, width, max_iters, visited_cap):
-    """The cache key of a MemGraph hop's graph (search_kernel._graph_key):
-    the device, the batch size, X and G as the graph reads them in place,
-    and the static arguments."""
-    return _graph_key(X.device, batch, (X, G),
-                      dict(L=L, width=width, max_iters=max_iters,
-                           visited_cap=visited_cap))
-
-
 def _beam_search_mem_batch(X, G, entries, entry_valid, q, *, L, width,
                            max_iters, visited_cap, graphs=None, tracer=None):
     """Batched over queries; tensors on one device. X (n, d) f32; G (n, R)
@@ -131,13 +117,13 @@ def _beam_search_mem_batch(X, G, entries, entry_valid, q, *, L, width,
     q (B, d) f32. Returns dict(ids (B, L), dists (B, L), visited_ids
     (B, V), visited_dists, hops (B,)). A finished query keeps its state
     while the others go on, as under the reference's vmap. `graphs` (a
-    search_kernel._HopGraphs) is for a caller whose X and G stay on the
-    device from call to call: on a CUDA device each iteration then replays
-    a graph of `_mem_hop` from it, captured once per `_mem_graph_key`;
-    otherwise the hop runs op by op. A host-clock `tracer` gets a
-    `search.sync` span for each loop check's host sync and a `mem.hop`
-    span for each iteration (its work, then the next check and its
-    sync)."""
+    hop_loop.HopGraphs) is for a caller whose X and G stay on the device
+    from call to call: on a CUDA device each iteration then replays a graph
+    of `_mem_hop` from it, captured once per key (X and G read in place,
+    the call size and the static arguments); otherwise the hop runs op by
+    op. A host-clock `tracer` gets a `search.sync` span for each loop
+    check's host sync and a `mem.hop` span for each iteration (its work,
+    then the next check and its sync)."""
     dev = q.device
     B, n = q.shape[0], X.shape[0]
     d0 = torch.where(entry_valid,
@@ -157,14 +143,13 @@ def _beam_search_mem_batch(X, G, entries, entry_valid, q, *, L, width,
         torch.zeros(B, dtype=torch.int64, device=dev),
         torch.zeros(B, dtype=torch.int64, device=dev))
     t = _MemInputs(X, G, q, torch.arange(width, device=dev))
-    graphed = graphs is not None and max_iters > 0 and _graphs_on(dev)
     st = hop_loop(
         functools.partial(_mem_hop, L=L, width=width,
                           visited_cap=visited_cap),
         t, state, functools.partial(_mem_live, max_iters=max_iters),
-        graphs=graphs if graphed else None,
-        key=(_mem_graph_key(X, G, B, L=L, width=width, max_iters=max_iters,
-                            visited_cap=visited_cap) if graphed else None),
+        graphs=graphs, reads=(X, G),
+        static=dict(L=L, width=width, max_iters=max_iters,
+                    visited_cap=visited_cap),
         copied=("q", "span"), tracer=tracer, span="mem.hop")
     return {"ids": st.ids, "dists": st.keys[..., 0],
             "visited_ids": st.vis_ids, "visited_dists": st.vis_d,
