@@ -22,8 +22,11 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
             modelled QPS of the SSD model, the measured queries/s of the
             search on the card, and for the fused run its mean
             measured_step_us. The kernels' launch counts are set to 0 just
-            before the fused search and the split measurement of its page
-            schedule (measure_step_us(mode="split")), and read just after.
+            before each search and read just after it (for the fused run,
+            after the split measurement of its page schedule,
+            measure_step_us(mode="split")): every search must have launched
+            the pool merge's kernel (dedup_merge_topL), the fused one the
+            page kernels too.
 4. parity   the same small index searched on the card and on the CPU (the
             plain PyTorch path) must agree.
 5. kernels  on the fused run's page schedule, each kernel against its plain
@@ -37,7 +40,16 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
             that computes the same function (page_scan: a full-f32 addmm of
             the gathered tiles, TF32 off; page_adc: embedding_bag), held to
             the kernel's tolerances and timed both ways: `library_ms` by
-            graph replay, `library_launcher_ms` from the host.
+            graph replay, `library_launcher_ms` from the host. Then the
+            search pool's merge (dedup_merge_topL, csrc/merge_topl.cu) at
+            the benchmark's hop shapes, deep's (B, N, L, K, F) =
+            (256, 2368, 96, 2, 2) and sift's (2, 616, 96, 2, 2), on
+            search-like rows: byte for byte against its plain version on
+            the card, `ms` by graph replay of the wrapper's calls (their
+            outputs drawn from the graph's pool at capture), the
+            launcher's time, the plain version's time both ways, and its
+            bound from the bytes a row reads and writes, (N + L)(8 + 4K +
+            F). There is no library call that computes it.
 6. pq_adc   the PQ filter scan of the paper's memory layout (§4.1.1): the
             bucketed pq_adc over the baseline index's N PQ codes against
             the LUTs of the first 8 queries, over 65,536 random codes
@@ -270,9 +282,16 @@ KERNELS = {
                         "src/repro/kernels/fused_search.py:76"),
     "pq_adc": ("src/repro_torch/kernels/csrc/pq_adc.cu",
                "src/repro/kernels/pq_adc.py:49"),
+    "dedup_merge_topL": ("src/repro_torch/kernels/csrc/merge_topl.cu",
+                         "none: the reference's merge is jnp, "
+                         "src/repro/core/searchutils.py:50"),
 }
-# the kernels of the fused search's path; pq_adc has its own ([pq_adc])
+# the kernels of the fused search's path; pq_adc has its own ([pq_adc]);
+# every search launches the pool merge's
 SEARCH_KERNELS = ("page_scan", "page_adc", "fused_page_rank")
+# [kernels]: the pool merge's (B, N, L, K, F) at deep's batch disk hop and
+# at sift's online one
+MERGE_CASES = {"deep": (256, 2368, 96, 2, 2), "sift": (2, 616, 96, 2, 2)}
 # the PQ filter's microbench shape (benchmarks/kernels.py): one query's LUT
 # against this many random codes
 PQ_MICRO_N = 65_536
@@ -393,29 +412,33 @@ def phase_search(rt, torch, ds, indexes):
     from repro_torch import kernels as ops
     from repro_torch.core.search_kernel import measure_step_us
     model = rt.SSDModel()
-    out = {}
+    out = {"merge_launches": {}}
     for run, (index_name, preset, over) in RUNS.items():
         idx = indexes[index_name]
         cfg = rt.get_preset(preset, **over)
         fused = cfg.pipeline == "fused"
-        if fused:
-            ops.reset_launches()
+        ops.reset_launches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         st = idx.search(ds.queries, cfg)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        extra = {}
+        merges = ops.launches["dedup_merge_topL"]
+        if merges == 0:
+            raise RuntimeError(f"{run}: the search launched no "
+                               f"dedup_merge_topL")
+        out["merge_launches"][run] = merges
+        extra = {"merge_launches": merges}
         if fused:
             store = idx.page_store(use_cache=False)
             split = measure_step_us(store, idx.pq, ds.queries[:256],
                                     st.page_trace[:256], mode="split")
             torch.cuda.synchronize()
             launches = {k: ops.launches[k] for k in SEARCH_KERNELS}
-            extra = {"measured_step_us_mean":
-                     round(float(st.measured_step_us.mean()), 3),
-                     "split_us_per_page": round(split["us_per_page"], 4),
-                     "launches": json.dumps(launches).replace(" ", "")}
+            extra |= {"measured_step_us_mean":
+                      round(float(st.measured_step_us.mean()), 3),
+                      "split_us_per_page": round(split["us_per_page"], 4),
+                      "launches": json.dumps(launches).replace(" ", "")}
             missing = [k for k, v in launches.items() if v == 0]
             if missing:
                 raise RuntimeError(f"main path launched no {missing}")
@@ -591,6 +614,60 @@ def phase_kernels(torch, search_out, d: int):
                                        else None)}
         say("kernels", **{k: v for k, v in row.items()
                           if k not in ("source", "replaces")})
+        rows.append(row)
+    return rows
+
+
+def phase_merge(torch, merge_launches):
+    """The pool merge's kernel at MERGE_CASES: byte for byte against its
+    plain version on the card, timed as phase_kernels times the page
+    kernels. `merge_launches`: each search's launch count ([search])."""
+    from repro_torch import kernels as ops
+    from repro_torch.core.device_model import H100_SXM
+    from repro_torch.core.searchutils import INF, SENTINEL
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.timing import cuda_ms, graph_ms
+    source, replaces = KERNELS["dedup_merge_topL"]
+    kw = {"sentinel": SENTINEL, "inf": INF}
+    rows = []
+    for shape, (b, n, L, k, f) in MERGE_CASES.items():
+        # search-like rows: ids from 4 N values, so that some repeat, a
+        # quarter SENTINEL; continuous keys, a quarter INF; random flags
+        gen = torch.Generator(device="cuda").manual_seed(b * n)
+
+        def rand(*size):
+            return torch.rand(size, device="cuda", generator=gen)
+        ids = torch.randint(0, 4 * n, (b, n), device="cuda", generator=gen)
+        ids = torch.where(rand(b, n) < 0.25, SENTINEL, ids)
+        keys = torch.where(rand(b, n, k) < 0.25, INF, rand(b, n, k) * 100)
+        flags = rand(b, n, f) < 0.5
+        got = ops.dedup_merge_topL(ids, keys, flags, L, **kw)
+        want = ref.dedup_merge_topL_ref(ids, keys, flags, L, **kw)
+        for g, w in zip(got, want):
+            if g.dtype != w.dtype or not torch.equal(
+                    g.view(torch.uint8), w.view(torch.uint8)):
+                raise RuntimeError(f"dedup_merge_topL at {shape}'s shape "
+                                   f"differs from its plain version")
+        nbytes = b * (n + L) * (8 + 4 * k + f)
+        bound_s, bound_by = H100_SXM.bound_s(nbytes, 0)
+        row = {"name": "dedup_merge_topL", "shape": shape, "route": "cuda",
+               "source": source, "replaces": replaces,
+               "B_N_L_K_F": [b, n, L, k, f],
+               "launches": merge_launches, "max_abs_err": 0.0,
+               "ms": graph_ms(lambda: ops.dedup_merge_topL(ids, keys, flags,
+                                                           L, **kw), 200),
+               "launcher_ms": cuda_ms(lambda: ops.dedup_merge_topL(
+                   ids, keys, flags, L, **kw), 200),
+               "plain_ms": cuda_ms(lambda: ref.dedup_merge_topL_ref(
+                   ids, keys, flags, L, **kw), 50),
+               "plain_graph_ms": graph_ms(lambda: ref.dedup_merge_topL_ref(
+                   ids, keys, flags, L, **kw), 20),
+               "bound_ms": bound_s * 1e3, "bound_by": bound_by,
+               "library_ms": None, "library_launcher_ms": None}
+        say("kernels", **{k_: json.dumps(v).replace(" ", "")
+                          if isinstance(v, (dict, list)) else v
+                          for k_, v in row.items()
+                          if k_ not in ("source", "replaces")})
         rows.append(row)
     return rows
 
@@ -2075,6 +2152,7 @@ def main() -> int:
     search_out["queries"] = ds.queries
     phase_parity(rt)
     rows = phase_kernels(torch, search_out, ds.d)
+    rows += phase_merge(torch, search_out["merge_launches"])
     t0 = time.perf_counter()
     rows.append(phase_pq_adc(rt, torch, ds, indexes))
     say("pq_adc", phase_s=round(time.perf_counter() - t0, 3))

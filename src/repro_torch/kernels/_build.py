@@ -27,6 +27,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_LL = ctypes.c_longlong
+_F = ctypes.c_float
 # C signature of every entry point: (argtypes). Each returns an int: the
 # launchers a cudaError_t, the `*_smem` functions a block's dynamic shared
 # memory in bytes.
@@ -47,6 +49,10 @@ SIGNATURES = {
     },
     "pq_adc": {
         "pq_adc_f32": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
+    },
+    "merge_topl": {
+        "merge_topl": (_P, _P, _P, _I, _I, _I, _I, _I, _LL, _F, _P, _P, _P,
+                       _P),
     },
 }
 

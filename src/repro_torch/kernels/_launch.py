@@ -6,7 +6,7 @@ import torch
 
 # kernel launches of each wrapper, counted where the wrapper launches
 launches = {"page_scan": 0, "page_adc": 0, "fused_page_rank": 0,
-            "pq_adc": 0}
+            "pq_adc": 0, "dedup_merge_topL": 0}
 
 
 def reset_launches() -> None:

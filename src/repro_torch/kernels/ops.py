@@ -20,7 +20,8 @@ from repro_torch.kernels import _build
 from repro_torch.kernels._launch import (_check, _on_card, _raise_on, _stream,
                                          launches)
 from repro_torch.kernels.pq_adc import pq_adc_padded
-from repro_torch.kernels.ref import (fused_page_rank_ref, page_adc_ref,
+from repro_torch.kernels.ref import (dedup_merge_topL_ref,
+                                     fused_page_rank_ref, page_adc_ref,
                                      page_scan_ref)
 
 _MIN_BUCKET = 4     # smallest width bucket (floor of the power-of-two ladder)
@@ -192,3 +193,48 @@ def pq_adc(codes, lut, block_n: int = 512):
     n = codes.shape[0]
     b = bucket_size(n, floor=min(block_n, bucket_size(n)))
     return pq_adc_padded(codes, lut, b + (-b) % block_n, n)[:n]
+
+
+MERGE_MAX_N = 16384   # csrc/merge_topl.cu sorts a row in one block
+
+
+def dedup_merge_topL(ids, keys, flags, L: int, *, sentinel: int,
+                     inf: float):
+    """The search pool's merge (core/searchutils.py): ids (B, N) int,
+    `sentinel` the padding id; keys (B, N, K) f32, column 0 the ranking key;
+    flags (B, N, F) bool. Returns ids (B, L), keys (B, L, K) and flags
+    (B, L, F): the unique ids, each one's min keys and OR'd flags, sorted
+    by key column 0, `sentinel` in the slots past them. On the card one
+    launch of csrc/merge_topl.cu, equal to dedup_merge_topL_ref bit for
+    bit, which takes ids int64 holding int32 values, keys f32 and flags
+    bool, all contiguous, K and F in {1, 2} and 1 <= L <= N <=
+    MERGE_MAX_N."""
+    if not _on_card(ids, keys, flags):
+        return dedup_merge_topL_ref(ids, keys, flags, L, sentinel=sentinel,
+                                    inf=inf)
+    _check("ids", ids, (torch.int64,), 2)
+    _check("keys", keys, (torch.float32,), 3)
+    _check("flags", flags, (torch.bool,), 3)
+    b, n = ids.shape
+    k, f = keys.shape[2], flags.shape[2]
+    if keys.shape[:2] != ids.shape or flags.shape[:2] != ids.shape:
+        raise ValueError(f"keys {tuple(keys.shape)} and flags "
+                         f"{tuple(flags.shape)} do not match ids "
+                         f"{tuple(ids.shape)}")
+    if k not in (1, 2) or f not in (1, 2):
+        raise ValueError(f"dedup_merge_topL takes 1 or 2 key and flag "
+                         f"columns on the card, got {k} and {f}")
+    if not 1 <= L <= n <= MERGE_MAX_N:
+        raise ValueError(f"dedup_merge_topL takes 1 <= L <= N <= "
+                         f"{MERGE_MAX_N} on the card, got L = {L}, N = {n}")
+    dev = ids.device
+    out = (torch.empty((b, L), dtype=torch.int64, device=dev),
+           torch.empty((b, L, k), dtype=torch.float32, device=dev),
+           torch.empty((b, L, f), dtype=torch.bool, device=dev))
+    if b:
+        fn = _build.library("merge_topl").merge_topl
+        _raise_on(fn(ids.data_ptr(), keys.data_ptr(), flags.data_ptr(), b, n,
+                     k, f, L, sentinel, inf, *(o.data_ptr() for o in out),
+                     _stream(ids)), "merge_topl")
+        launches["dedup_merge_topL"] += 1
+    return out

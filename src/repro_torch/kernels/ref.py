@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the page kernels: what each kernel computes,
+"""Plain PyTorch versions of the kernels: what each kernel computes,
 written with tensor operations. The wrappers in ops.py use them for
 tensors on the CPU; on the card they are what the kernels are held
 against."""
@@ -43,3 +43,51 @@ def fused_page_rank_ref(pages, page_codes, page_ids, q, lut):
     Returns (exact, adc), each (W, n_p, Q) f32."""
     return (page_scan_ref(pages, page_ids, q),
             page_adc_ref(page_codes, page_ids, lut))
+
+
+def _take(x, idx):
+    """Gather rows of x (B, N, ...) by idx (B, K) along dim 1."""
+    if x.dim() == 2:
+        return torch.gather(x, 1, idx)
+    shape = idx.shape + x.shape[2:]
+    return torch.gather(x, 1, idx.reshape(idx.shape + (1,) * (x.dim() - 2))
+                        .expand(shape))
+
+
+def segmented_min_or(ids, keys, flags, *, inf: float):
+    """ids (B, N) sorted ascending per row. Within equal-id runs: min over
+    keys (per column) and OR over flags (per column), accumulated into the
+    FIRST element of each run, by doubling shifts (exact for any run
+    length); `inf` fills the shifted-in keys."""
+    n = ids.shape[1]
+    shift = 1
+    while shift < n:
+        same = torch.zeros_like(ids, dtype=torch.bool)
+        same[:, :-shift] = ids[:, :-shift] == ids[:, shift:]
+        sk = torch.full_like(keys, inf)
+        sk[:, :-shift] = keys[:, shift:]
+        keys = torch.where(same[..., None], torch.minimum(keys, sk), keys)
+        sf = torch.zeros_like(flags)
+        sf[:, :-shift] = flags[:, shift:]
+        flags = torch.where(same[..., None], flags | sf, flags)
+        shift *= 2
+    return keys, flags
+
+
+def dedup_merge_topL_ref(ids, keys, flags, L: int, *, sentinel: int,
+                         inf: float):
+    """The search pool's merge (core/searchutils.py `dedup_merge_topL`) in
+    tensor ops: two stable sorts, the doubling segmented min/OR and the
+    top-L cut. Every slot past the unique ids keeps its run's suffix min
+    and OR, as the doubling leaves them."""
+    order = torch.sort(ids, dim=1, stable=True).indices
+    ids, keys, flags = _take(ids, order), _take(keys, order), _take(flags, order)
+    keys, flags = segmented_min_or(ids, keys, flags, inf=inf)
+    first = torch.ones_like(ids, dtype=torch.bool)
+    first[:, 1:] = ids[:, 1:] != ids[:, :-1]
+    rank_key = torch.where(first & (ids < sentinel), keys[..., 0],
+                           torch.full_like(keys[..., 0], inf))
+    order2 = torch.sort(rank_key, dim=1, stable=True).indices[:, :L]
+    out_ids = torch.where(_take(rank_key, order2) < inf, _take(ids, order2),
+                          torch.full_like(order2, sentinel, dtype=ids.dtype))
+    return out_ids, _take(keys, order2), _take(flags, order2)

@@ -256,7 +256,155 @@ def test_pq_adc_raises_on_what_the_kernel_does_not_take(card):
         ops.pq_adc(codes, lut.cpu())
 
 
-def _integer_index(device):
+# dedup_merge_topL (csrc/merge_topl.cu) against its plain version: every
+# caller's (N, L, K, F) at the benchmark's shapes, as in
+# tests/test_torch_searchutils.py: deep's, gist's and sift's disk hops, the
+# MemGraph hop, the Vamana build's search and candidate merges; then the
+# wider launches: an OctopusANN hop on an R = 128 graph (NP = 8,192) and
+# one of a pipelined width of 64 on an R = 160 graph (NP = 16,384)
+MERGE_SHAPES = [(2368, 96, 2, 2), (2272, 160, 2, 2), (616, 96, 2, 2),
+                (128, 32, 1, 1), (189, 125, 1, 1), (439, 439, 1, 1),
+                (4416, 96, 2, 2), (10_880, 128, 2, 2)]
+MERGE_EDGES = ("sentinel", "inf", "one_run")
+
+
+def _merge_rows(seed, b, n, k, f, kinds=()):
+    """b rows of candidates, as numpy. Rows tie as in
+    tests/test_torch_searchutils.py: ids from n // 4 values, a quarter
+    SENTINEL; keys from 4 levels, a quarter INF; random flags. Every other
+    row is search-like instead: ids from 8 n values, keys continuous. Row i
+    < len(kinds) is an edge row: all SENTINEL, all keys INF, or one id the
+    whole row long."""
+    from repro_torch.core.searchutils import INF, SENTINEL
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(0, max(2, n // 4), (b, n))
+    ids[rng.random((b, n)) < 0.25] = SENTINEL
+    keys = rng.integers(0, 4, (b, n, k)).astype(np.float32)
+    keys[rng.random((b, n, k)) < 0.25] = np.float32(INF)
+    flags = rng.random((b, n, f)) < 0.5
+    ids[1::2] = rng.integers(0, 8 * n, (b // 2, n))
+    keys[1::2] = rng.random((b // 2, n, k)).astype(np.float32) * 100
+    for i, kind in enumerate(kinds):
+        if kind == "sentinel":
+            ids[i] = SENTINEL
+        elif kind == "inf":
+            keys[i] = np.float32(INF)
+        else:
+            ids[i] = 12345
+    return ids, keys, flags
+
+
+def _merge_both(arrays, L, device):
+    """The merge of `arrays` by dedup_merge_topL on the CPU (the plain
+    version) and on `device`."""
+    from repro_torch.core import searchutils as tsu
+    cpu = [torch.as_tensor(a) for a in arrays]
+    want = tsu.dedup_merge_topL(*cpu, L)
+    got = tsu.dedup_merge_topL(*(t.to(device) for t in cpu), L)
+    return got, want
+
+
+def _assert_same_bits(got, want):
+    """Each output equal in dtype, shape and every byte, padded slots
+    included."""
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        np.testing.assert_array_equal(g.cpu().numpy().view(np.uint8),
+                                      w.numpy().view(np.uint8))
+
+
+@pytest.mark.parametrize("b", [1, 3, 256])
+@pytest.mark.parametrize("n,L,k,f", MERGE_SHAPES)
+def test_merge_kernel_equals_plain_bit_for_bit(card, n, L, k, f, b):
+    """B = 1 is a tied row; B = 3 the three edge rows alone, whose padded
+    slots carry their runs' suffix min and OR; B = 256 both kinds of row
+    and the edges."""
+    arrays = _merge_rows(n + L + b, b, n, k, f,
+                         MERGE_EDGES if b >= len(MERGE_EDGES) else ())
+    _assert_same_bits(*_merge_both(arrays, L, card))
+
+
+@pytest.mark.parametrize("n", [1, 2, 7, 8, 9, 255, 256, 257, 4095, 4096,
+                               4097, 8192, 8193, 16_383, 16_384])
+def test_merge_kernel_every_padded_length(card, n):
+    """Widths below, at and above the powers of two the kernel pads its
+    sorts to, from one thread up to the widest block of each launch."""
+    arrays = _merge_rows(n, 4, n, 2, 1)
+    for L in sorted({1, (n + 1) // 2, n}):
+        _assert_same_bits(*_merge_both(arrays, L, card))
+
+
+@pytest.mark.parametrize("n,L,k,f", [(616, 96, 2, 2), (4416, 96, 2, 2),
+                                     (10_880, 128, 2, 2)])
+def test_merge_kernel_replays_in_a_cuda_graph(card, n, L, k, f):
+    """Captured once on static buffers, the kernel merges new inputs on
+    every replay, as it does inside the captured hops; the wider launches
+    opt in to their shared memory inside the capture."""
+    from repro_torch.core import searchutils as tsu
+    bufs = [torch.as_tensor(a).to(card)
+            for a in _merge_rows(1, 16, n, k, f)]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        tsu.dedup_merge_topL(*bufs, L)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = tsu.dedup_merge_topL(*bufs, L)
+    for seed in (2, 3):
+        arrays = _merge_rows(seed, 16, n, k, f, MERGE_EDGES)
+        for buf, a in zip(bufs, arrays):
+            buf.copy_(torch.as_tensor(a))
+        graph.replay()
+        torch.cuda.synchronize()
+        want = tsu.dedup_merge_topL(*(torch.as_tensor(a) for a in arrays),
+                                    L)
+        _assert_same_bits(out, want)
+
+
+def test_merge_kernel_counts_its_launches(card):
+    """One launch a call on the card; none on the CPU."""
+    from repro_torch.core import searchutils as tsu
+    arrays = [torch.as_tensor(a) for a in _merge_rows(4, 3, 128, 1, 1)]
+    before = ops.launches["dedup_merge_topL"]
+    tsu.dedup_merge_topL(*(a.to(card) for a in arrays), 32)
+    torch.cuda.synchronize()
+    assert ops.launches["dedup_merge_topL"] == before + 1
+    tsu.dedup_merge_topL(*arrays, 32)
+    assert ops.launches["dedup_merge_topL"] == before + 1
+
+
+def test_merge_kernel_raises_on_what_it_does_not_take(card):
+    ids, keys, flags = (torch.as_tensor(a).to(card)
+                        for a in _merge_rows(5, 2, 64, 2, 2))
+    with pytest.raises(TypeError):
+        ops.dedup_merge_topL(ids.int(), keys, flags, 8, sentinel=1, inf=1.0)
+    with pytest.raises(TypeError):
+        ops.dedup_merge_topL(ids, keys.double(), flags, 8, sentinel=1, inf=1.0)
+    with pytest.raises(TypeError):
+        ops.dedup_merge_topL(ids, keys, flags.int(), 8, sentinel=1, inf=1.0)
+    with pytest.raises(ValueError, match="1 or 2 key and flag columns"):
+        ops.dedup_merge_topL(ids, torch.cat([keys, keys], 2), flags, 8,
+                       sentinel=1, inf=1.0)
+    with pytest.raises(ValueError, match="L <= N"):
+        ops.dedup_merge_topL(ids, keys, flags, 65, sentinel=1, inf=1.0)
+    with pytest.raises(ValueError, match="L <= N"):
+        ops.dedup_merge_topL(ids, keys, flags, 0, sentinel=1, inf=1.0)
+    wide = [torch.as_tensor(a).to(card)
+            for a in _merge_rows(6, 1, 16_385, 1, 1)]
+    with pytest.raises(ValueError, match="N <= 16384"):
+        ops.dedup_merge_topL(*wide, 8, sentinel=1, inf=1.0)
+    with pytest.raises(ValueError, match="do not match"):
+        ops.dedup_merge_topL(ids, keys[:, :32].contiguous(), flags, 8, sentinel=1,
+                       inf=1.0)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.dedup_merge_topL(ids.t().contiguous().t(), keys, flags, 8, sentinel=1,
+                       inf=1.0)
+    with pytest.raises(ValueError, match="all on the CPU"):
+        ops.dedup_merge_topL(ids, keys.cpu(), flags, 8, sentinel=1, inf=1.0)
+
+
+def _integer_index(device, preset="baseline", R=16, L_build=32):
     """A small port index whose vectors, queries and PQ centroids are
     small integers, so every distance is exact in float32 on either
     device: the card's search and the CPU's must agree bit for bit."""
@@ -268,7 +416,7 @@ def _integer_index(device):
     x = rng.integers(0, 8, (1024, 32)).astype(np.float32)
     q = rng.integers(0, 8, (32, 32)).astype(np.float32)
     ds = Dataset("tie-free", x, q, np.zeros((32, 10), np.int32), "float")
-    idx = build_index(ds, get_preset("baseline"), R=16, L_build=32,
+    idx = build_index(ds, get_preset(preset), R=R, L_build=L_build,
                       device="cpu")
     cent = rng.integers(0, 8, (16, 256, 2)).astype(np.float32)
     idx.pq = PQ(centroids=cent, codes=encode(x, cent, device="cpu"), m=16,
@@ -316,6 +464,35 @@ def test_fused_server_on_the_card_equals_the_cpu(card):
     np.testing.assert_array_equal(g_o.stats.ids, c_o.stats.ids)
     np.testing.assert_array_equal(g_o.stats.dists, c_o.stats.dists)
     assert c_l["fused_page_rank"] == 0 and g_l["fused_page_rank"] > 0
+    assert c_l["dedup_merge_topL"] == 0 and g_l["dedup_merge_topL"] > 0
+
+
+def test_search_of_an_r128_graph_on_the_card_equals_the_cpu(card,
+                                                           monkeypatch):
+    """OctopusANN on an R = 128 graph, a common DiskANN build: each disk hop
+    merges L + 32 (1 + n_p + R) > 4,096 candidates, one of the merge
+    kernel's wider launches, and the card's results equal the CPU's."""
+    from repro_torch import get_preset
+    from repro_torch.kernels import ops as kernel_ops
+    ds, cpu_idx, gpu_idx = _integer_index(card, "starling", R=128,
+                                          L_build=128)
+    widths = []
+    merge = kernel_ops.dedup_merge_topL
+
+    def spy(ids, *a, **kw):
+        widths.append(ids.shape[1])
+        return merge(ids, *a, **kw)
+
+    monkeypatch.setattr(kernel_ops, "dedup_merge_topL", spy)
+    cfg = get_preset("octopusann")
+    want = cpu_idx.search(ds.queries, cfg)
+    widths.clear()
+    ops.reset_launches()
+    got = gpu_idx.search(ds.queries, cfg)
+    assert max(widths) > 4096 and ops.launches["dedup_merge_topL"] > 0
+    for name in ("ids", "dists", "hops", "page_reads"):
+        np.testing.assert_array_equal(getattr(got, name),
+                                      getattr(want, name))
 
 
 def test_fleet_on_the_card_equals_the_facade(card):

@@ -18,6 +18,7 @@ from repro.kernels.page_scan import page_scan as pallas_scan
 from repro.kernels.ref import fused_page_rank_ref as jax_fused_ref
 from repro.kernels.ref import page_scan_ref as jax_scan_ref
 from repro_torch import kernels as ops
+from repro_torch.core.searchutils import dedup_merge_topL
 from repro_torch.kernels import ref
 from repro_torch.kernels.ops import _pad_ids
 
@@ -170,5 +171,8 @@ def test_cpu_calls_launch_nothing():
     arrays = _case(np.random.default_rng(2), 8, 8, 16, 4, 3, 2)
     ops.fused_page_rank(*_torch(arrays))
     ops.pq_adc(torch.zeros((5, 4), dtype=torch.uint8), torch.ones((4, 256)))
+    dedup_merge_topL(torch.tensor([[3, 1, 3]]), torch.ones((1, 3, 2)),
+                     torch.zeros((1, 3, 2), dtype=torch.bool), 2)
     assert ops.launches == {"page_scan": 0, "page_adc": 0,
-                            "fused_page_rank": 0, "pq_adc": 0}
+                            "fused_page_rank": 0, "pq_adc": 0,
+                            "dedup_merge_topL": 0}

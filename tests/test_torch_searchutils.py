@@ -14,6 +14,7 @@ import torch
 
 from repro.core import searchutils as jsu
 from repro_torch.core import searchutils as tsu
+from repro_torch.kernels import ref
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -42,9 +43,17 @@ def _tied_inputs(rng, n, k_cols, f_cols):
     return ids, keys, flags
 
 
+# every caller's (N, L, K, F) at the benchmark's shapes: deep's, gist's
+# and sift's disk hops, the MemGraph hop, and the Vamana build's search and
+# candidate merges (L 125, R 64, visited cap 250); tests/test_torch_cuda.py
+# holds the kernel to the plain version at the same shapes
+CALLER_SHAPES = [(2368, 96, 2, 2), (2272, 160, 2, 2), (616, 96, 2, 2),
+                 (128, 32, 1, 1), (189, 125, 1, 1), (439, 439, 1, 1)]
+
+
 @pytest.mark.parametrize("n,L,k_cols,f_cols", [
     (16, 8, 1, 1), (40, 12, 2, 2), (64, 64, 1, 1), (100, 24, 2, 2),
-    (7, 7, 2, 1),
+    (7, 7, 2, 1), *CALLER_SHAPES,
 ])
 def test_dedup_merge_topL_identical(n, L, k_cols, f_cols):
     rng = np.random.default_rng(n + L)
@@ -88,9 +97,10 @@ def test_segmented_min_or_long_runs():
     wk, wf = jax.jit(jsu._segmented_min_or)(jnp.asarray(ids),
                                             jnp.asarray(keys),
                                             jnp.asarray(flags))
-    gk, gf = tsu._segmented_min_or(torch.as_tensor(ids[None].astype(np.int64)),
-                                   torch.as_tensor(keys[None]),
-                                   torch.as_tensor(flags[None]))
+    gk, gf = ref.segmented_min_or(
+        torch.as_tensor(ids[None].astype(np.int64)),
+        torch.as_tensor(keys[None]), torch.as_tensor(flags[None]),
+        inf=tsu.INF)
     np.testing.assert_array_equal(gk[0].numpy(), np.asarray(wk))
     np.testing.assert_array_equal(gf[0].numpy(), np.asarray(wf))
 
